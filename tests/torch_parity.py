@@ -1,0 +1,103 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+The same inputs, made with numpy from a seed, go through a JAX function and
+its counterpart in ``rgbd_visualodometry_tpu_torch``; arrays cross between
+the two as numpy.  JAX runs on the CPU as the JAX package's own tests run it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rgbd_visualodometry_tpu.config import VOConfig as JaxVOConfig
+from rgbd_visualodometry_tpu_torch import _shared
+
+# the suite runs in several worker processes: a few threads each
+torch.set_num_threads(2)
+
+SMALL = dict(
+    image_width=320, image_height=240,
+    camera_fx=258.6, camera_fy=258.2, camera_cx=159.3, camera_cy=127.6,
+    number_of_features=300, level_pyramid=4,
+    max_keyframes=32, max_mappoints=4096, max_obs_per_mappoint=8,
+    pnp_max_points=512, triangulation_batch=256, ransac_hypotheses=64,
+    ba_max_poses=8, ba_max_points=2048,
+    packed_matching=True, enable_local_optimization=False,
+)
+
+
+def small_cfgs(**kw):
+    """``(port VOConfig, JAX VOConfig)`` of the small test configuration
+    (``tests/test_pipeline.py::small_cfg`` with packed matching, no BA)."""
+    params = dict(SMALL, **kw)
+    return _shared.VOConfig(**params), JaxVOConfig(**params)
+
+
+def small_scene(**kw):
+    return _shared.SyntheticScene(width=320, height=240, fx=258.6, fy=258.2, cx=159.3, cy=127.6, **kw)
+
+
+@pytest.fixture(scope="module")
+def x64_off():
+    """The JAX package in its production float mode.  ``tests/conftest.py``
+    turns on ``jax_enable_x64``, which makes ``jax.random.uniform`` draw
+    float64 (different RANSAC samples) and the resize weights float64; the
+    pipeline tests compare against the float32 program the package runs."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", prev)
+
+
+@functools.lru_cache(maxsize=8)
+def _jax_pyramid(nlevels: int, scale: float):
+    from rgbd_visualodometry_tpu.ops import image as jim
+
+    return jax.jit(lambda g: jim.build_pyramid(g, nlevels, scale))
+
+
+def reference_pyramid(gray: torch.Tensor, nlevels: int, scale: float):
+    """The JAX package's pyramid levels as torch tensors.  Injected into the
+    port where a test needs bit-identical levels: the port's resize agrees
+    with ``jax.image.resize`` to ~1e-4 gray levels only (XLA's CPU division
+    and dot accumulation order are not reproduced), enough to reorder a few
+    Harris-ranked keypoints."""
+    levels = _jax_pyramid(nlevels, scale)(jnp.asarray(gray.detach().cpu().numpy()))
+    return [torch.from_numpy(np.array(lv)).to(gray.device) for lv in levels]
+
+
+@pytest.fixture
+def inject_reference_pyramid(monkeypatch):
+    from rgbd_visualodometry_tpu_torch.ops import image as tim
+
+    monkeypatch.setattr(tim, "build_pyramid", reference_pyramid)
+
+
+def quat_angle_deg(q1, q2) -> float:
+    """Rotation angle between two unit quaternions (sign-insensitive)."""
+    q1 = np.asarray(q1, np.float64) / np.linalg.norm(q1)
+    q2 = np.asarray(q2, np.float64) / np.linalg.norm(q2)
+    d = abs(float(np.dot(q1, q2)))
+    c = np.linalg.norm(np.outer(q1, q2) - np.outer(q2, q1)) / np.sqrt(2.0)
+    return float(np.degrees(2.0 * np.arctan2(c, d)))
+
+
+def t(a, dtype=None) -> torch.Tensor:
+    """numpy -> torch (CPU), copying so the tensor owns writable memory."""
+    x = torch.from_numpy(np.array(a))
+    return x if dtype is None else x.to(dtype)
+
+
+def asnp(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def cfg_fields_equal(a, b) -> bool:
+    return dataclasses.asdict(a) == dataclasses.asdict(b)
