@@ -134,7 +134,12 @@ HAMMING_NN = Kernel(
     source="rgbd_visualodometry_tpu_torch/csrc/hamming_nn.cu",
     replaces="rgbd_visualodometry_tpu/ops/pallas_match.py:152",
 )
-KERNELS = (FAST_NMS, HAMMING_NN)
+HAMMING_MATRIX = Kernel(
+    "hamming_matrix", "rgbdvo_hamming_matrix", [_P, _P, _I, _I, _P, _P],
+    source="rgbd_visualodometry_tpu_torch/csrc/hamming_nn.cu",
+    replaces="rgbd_visualodometry_tpu/ops/pallas_match.py:64",
+)
+KERNELS = (FAST_NMS, HAMMING_NN, HAMMING_MATRIX)
 
 
 def reset_counts() -> None:

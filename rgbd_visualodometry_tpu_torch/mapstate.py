@@ -149,8 +149,33 @@ def state_to_numpy(state: VOState) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# tracking map
+# incidence and tracking map
 # ---------------------------------------------------------------------------
+
+
+def incidence(state: VOState) -> torch.Tensor:
+    """``A [K, C]`` int8: keyframe k observes mappoint c (the cached
+    ``A_inc``)."""
+    return state.A_inc
+
+
+def with_spare(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with one zero row appended: masked index writes aim their
+    dropped lanes at it (the JAX package's ``mode="drop"``)."""
+    return torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+
+
+def incidence_from_obs(state: VOState) -> torch.Tensor:
+    """The incidence matrix rebuilt from the observation table: the ground
+    truth that the incremental ``A_inc`` is tested against."""
+    K = state.kf_pose.shape[0]
+    C = state.obs_kf.shape[0]
+    cols = torch.arange(C, device=state.obs_kf.device)[:, None]
+    flat = state.obs_kf.clamp(0, K - 1).long() * C + cols
+    flat = torch.where(state.obs_valid, flat, torch.full_like(flat, K * C))
+    A = torch.zeros(K * C + 1, dtype=torch.int8, device=flat.device)
+    A[flat.reshape(-1)] = 1
+    return A[: K * C].reshape(K, C)
 
 
 def tracking_map_mask(state: VOState, cfg) -> torch.Tensor:
@@ -272,3 +297,27 @@ def create_mappoints(state: VOState, kf_slot, positions, desc, uv, create_mask, 
         obs_valid=torch.where(h1, first_col[None, :], state.obs_valid),
         A_inc=_add_incidence(state.A_inc, kf_slot, hit),
     ), torch.sum(ok)
+
+
+def remove_observations_rows(state: VOState, pidx, pval, prune) -> VOState:
+    """``Frame::RemoveObservedMappoint`` + outlier marking
+    (``src/frame.cpp:123-154``, ``src/mappoint.cpp:39-49``) for a compact
+    per-point problem: clear the ``prune [B, M]`` observation slots of the
+    mappoints ``pidx [B]`` (where ``pval``); a mappoint left with no
+    observation becomes an outlier.  ``prune`` is in the pool's own
+    ``[C, M]`` row layout, so rows apply as they are."""
+    K = state.A_inc.shape[0]
+    C, M = state.obs_kf.shape
+    prune = prune & pval[:, None]
+    old = state.obs_valid[pidx]  # [B, M]
+    new = old & ~prune
+    obs_valid = with_spare(state.obs_valid)
+    obs_valid[torch.where(pval, pidx, C)] = new
+    newly_outlier = pval & state.mp_valid[pidx] & ~torch.any(new, dim=1)
+    mp_outlier = with_spare(state.mp_outlier)
+    mp_outlier[torch.where(newly_outlier, pidx, C)] = True
+    hit = prune & old
+    rows = torch.where(hit, state.obs_kf[pidx].clamp(0, K - 1).long(), K)
+    A_inc = with_spare(state.A_inc)
+    A_inc[rows, pidx[:, None].expand(-1, M)] = 0
+    return state.replace(obs_valid=obs_valid[:C], mp_outlier=mp_outlier[:C], A_inc=A_inc[:K])

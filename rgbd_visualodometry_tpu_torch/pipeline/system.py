@@ -7,11 +7,12 @@ back with a configurable lag by ``drain``, one copy of the packed record
 per frame.  ``run`` tracks a sequence, writes the TUM trajectory of
 tracked frames and stops on LOST unless relocalization is on.
 
-This port covers the tracking path.  Local bundle adjustment
-(``enable_local_optimization``), online loop closure (``relax_every_kf``)
-and the viewer are not ported: the BA dispatch raises
-``NotImplementedError`` at the first keyframe that requests it, and the
-other two raise at construction.
+Local bundle adjustment (``enable_local_optimization``) runs as in the
+reference: when a keyframe's lagged record asks for it, ``backend.ba_step``
+optimizes the newest state, after the steps still in flight ("latest
+keyframe wins", ``backend.h:33-37``), at most once every
+``ba_min_frame_gap`` frames.  Online loop closure (``relax_every_kf``) and
+the viewer are not ported and raise at construction.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from rgbd_visualodometry_tpu_torch import mapstate
 from rgbd_visualodometry_tpu_torch._shared import TrajectoryWriter
 from rgbd_visualodometry_tpu_torch.camera import Camera
 from rgbd_visualodometry_tpu_torch.mapstate import LOST
+from rgbd_visualodometry_tpu_torch.pipeline import backend
 from rgbd_visualodometry_tpu_torch.pipeline import frontend as frontend_mod
 
 _STATS = (
@@ -76,6 +78,7 @@ class VisualOdometry:
         self.results: list[FrameResult] = []
         self._pending: collections.deque = collections.deque()
         self._frames_since_ba = 1 << 30
+        self.ba_dispatches = 0  # local BA solves run
 
     def put_frame(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float) -> frontend_mod.FrameInput:
         """Stage one frame on the device; the staged timestamp is the offset
@@ -102,7 +105,9 @@ class VisualOdometry:
         f = frontend_mod.StepOutput._FIELDS
         self._frames_since_ba += 1
         if self.enable_backend and o[f["needs_ba"]] > 0.5 and self._frames_since_ba > self.cfg.ba_min_frame_gap:
-            raise NotImplementedError("local BA: see ROADMAP")
+            self.state, _ = backend.ba_step(self.cfg, self.camera, self.state, int(o[f["kf_slot"]]))
+            self._frames_since_ba = 0
+            self.ba_dispatches += 1
         res = FrameResult(
             timestamp=ts,
             tracked=bool(o[f["tracked"]] > 0.5),
@@ -129,6 +134,16 @@ class VisualOdometry:
     @property
     def lost(self) -> bool:
         return bool(self.results) and self.results[-1].fsm == LOST
+
+    def map_snapshot(self) -> dict:
+        """Host copy of the live map: alive mappoints ``[n, 3]``, valid
+        keyframe poses ``[k, 7]`` and the keyframe count."""
+        s = self.state
+        return dict(
+            mappoints=s.mp_pos[s.mp_alive].cpu().numpy(),
+            keyframe_poses=s.kf_pose[s.kf_valid].cpu().numpy(),
+            num_keyframes=int(s.num_kf),
+        )
 
     def run(self, frames, trajectory_path: Optional[str] = None, verbose: bool = False,
             lag: int = 3, stats_path: Optional[str] = None):

@@ -6,7 +6,8 @@ on a machine without jax:
 
     python3 -m pytest tests/test_torch_kernels_gpu.py -m gpu -q --noconftest
 
-Tolerance: none - K1 uses only subtraction, min and max, K2 only integers.
+Tolerance: none - K1 uses only subtraction, min and max, K2 and K3 only
+integers.
 """
 
 import numpy as np
@@ -73,6 +74,23 @@ def test_hamming_nn_kernel_exact(cuda, case):
     torch.cuda.synchronize()
     assert kernels.HAMMING_NN.launches == before + 1
     assert torch.equal(got.kp_index, want.kp_index) and torch.equal(got.distance, want.distance)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,N", [(65536, 512), (16384, 500), (16383, 37), (0, 500)])
+def test_hamming_matrix_kernel_exact(cuda, C, N):
+    """K3 at the shapes of chip_smoke.py's K3 phase: the parity bench's, the
+    main path's, a ragged C and N, and an empty pool."""
+    rng = np.random.default_rng(C + N)
+    cand, kp = (torch.from_numpy(rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32).view(np.int32)).to(cuda)
+                for n in (C, N))
+    before = kernels.HAMMING_MATRIX.launches
+    got = matching.hamming_matrix_packed(cand, kp)
+    want = matching.hamming_matrix_reference(cand, kp)
+    torch.cuda.synchronize()
+    assert kernels.HAMMING_MATRIX.launches == before + (1 if C else 0)
+    assert got.shape == (C, N) and got.dtype == torch.int32
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

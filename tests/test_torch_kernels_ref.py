@@ -1,5 +1,5 @@
-"""The plain torch versions of the port's two CUDA kernels against the JAX
-package, and the wrappers' dispatch.
+"""The plain torch versions of the port's three CUDA kernels against the
+JAX package, and the wrappers' dispatch.
 
 K1 (``ops/fast.py::fast_nms_reference``) is exact against the reference's
 main-path XLA formulation ``fast.fast_score`` + ``image.maxpool3x3`` and, as
@@ -9,7 +9,11 @@ main-path XLA formulation ``fast.fast_score`` + ``image.maxpool3x3`` and, as
 K2 (``ops/matching.py::hamming_nn_reference``) is exact against
 ``matching.nearest_keypoints_packed`` (the C-minor packed pool, the JAX
 package's CPU path ``_hamming_packed_xla_T``) and ``matching.nearest_keypoints``
-(the bipolar pool).  The kernels themselves run only on a CUDA device
+(the bipolar pool).  K3 (``ops/matching.py::hamming_matrix_reference``) is
+exact against ``pallas_match.hamming_matrix_packed`` (its XLA path on the
+CPU) and against the Pallas ``_kernel`` itself, run in interpret mode with
+the BlockSpecs of ``_hamming_packed_pallas`` and the ``_TILE_PERM``-permuted
+keypoints.  The kernels themselves run only on a CUDA device
 (tests/test_torch_kernels_gpu.py).
 """
 
@@ -23,7 +27,7 @@ from torch_parity import asnp, small_scene, t
 from rgbd_visualodometry_tpu.ops import fast as jfast
 from rgbd_visualodometry_tpu.ops import image as jim
 from rgbd_visualodometry_tpu.ops import matching as jmatch
-from rgbd_visualodometry_tpu.ops import pallas_fast
+from rgbd_visualodometry_tpu.ops import pallas_fast, pallas_match
 from rgbd_visualodometry_tpu.ops.pallas_match import unpack_bipolar
 from rgbd_visualodometry_tpu_torch import kernels
 from rgbd_visualodometry_tpu_torch.ops import fast as tfast
@@ -110,6 +114,48 @@ def test_hamming_nn_reference_exact(case):
         assert (asnp(got.distance) == tmatch.BIG).all() and (asnp(got.kp_index) == 0).all()
 
 
+def _pallas_kernel_interpret(cand, kp_bip, tile):
+    """``pallas_match._kernel`` through ``pl.pallas_call(interpret=True)``,
+    laid out as ``_hamming_packed_pallas`` lays it out (pallas_match.py:98-113)."""
+    from jax.experimental import pallas as pl
+
+    C, N = cand.shape[0], kp_bip.shape[0]
+    kp_perm = jnp.take(kp_bip, jnp.asarray(pallas_match._TILE_PERM), axis=1)
+    return pl.pallas_call(
+        pallas_match._kernel,
+        out_shape=jax.ShapeDtypeStruct((C, N), jnp.int32),
+        grid=(C // tile,),
+        in_specs=[
+            pl.BlockSpec((tile, pallas_match.WORDS), lambda i: (i, 0)),
+            pl.BlockSpec((N, pallas_match.BITS), lambda i: (0, 0)),
+        ],
+        out_specs=pl.BlockSpec((tile, N), lambda i: (i, 0)),
+        interpret=True,
+    )(cand, kp_perm)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "near", "ragged", "empty"])
+def test_hamming_matrix_reference_exact(case):
+    if case == "empty":
+        cand, kp = np.zeros((0, 8), np.uint32), _nn_cases()["random"][1]
+    else:
+        cand, kp, _ = _nn_cases()[case]
+    got = asnp(tmatch.hamming_matrix_reference(t(cand.view(np.int32)), t(kp.view(np.int32))))
+    want = np.asarray(pallas_match.hamming_matrix_packed(jnp.asarray(cand), unpack_bipolar(jnp.asarray(kp))))
+    assert got.dtype == np.int32 and got.shape == (cand.shape[0], kp.shape[0])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_hamming_matrix_reference_exact_vs_pallas_interpret():
+    rng = np.random.default_rng(11)
+    cand, kp = _descriptors(rng, 2048), _descriptors(rng, 40)
+    cand[:40] = kp  # distance 0 on the diagonal
+    want = np.asarray(_pallas_kernel_interpret(jnp.asarray(cand), unpack_bipolar(jnp.asarray(kp)), tile=1024))
+    got = asnp(tmatch.hamming_matrix_reference(t(cand.view(np.int32)), t(kp.view(np.int32))))
+    np.testing.assert_array_equal(got, want)
+    assert (np.diag(got[:40]) == 0).all()
+
+
 def test_wrappers_take_the_plain_version_on_cpu():
     kernels.reset_counts()
     img = t(_blocks((64, 96), 2))
@@ -118,7 +164,9 @@ def test_wrappers_take_the_plain_version_on_cpu():
     a = tmatch.nearest_keypoints_packed(t(cand.view(np.int32)), t(kp.view(np.int32)), t(mask))
     b = tmatch.hamming_nn_reference(t(cand.view(np.int32)), t(kp.view(np.int32)), t(mask))
     assert torch.equal(a.kp_index, b.kp_index) and torch.equal(a.distance, b.distance)
-    assert kernels.counts() == {"fast_nms": 0, "hamming_nn": 0}
+    m = tmatch.hamming_matrix_packed(t(cand.view(np.int32)), t(kp.view(np.int32)))
+    assert torch.equal(m, tmatch.hamming_matrix_reference(t(cand.view(np.int32)), t(kp.view(np.int32))))
+    assert kernels.counts() == {"fast_nms": 0, "hamming_nn": 0, "hamming_matrix": 0}
 
 
 def test_wrappers_check_their_inputs():
@@ -135,6 +183,9 @@ def test_wrappers_check_their_inputs():
         tmatch.nearest_keypoints_packed(d.long(), d, torch.ones(4, dtype=torch.bool))
     with pytest.raises(ValueError):
         tmatch.nearest_keypoints_packed(d.to("meta"), d.to("meta"), torch.ones(4, dtype=torch.bool, device="meta"))
+    for bad in ((d[:, :7], d), (d, d.long()), (d.to("meta"), d.to("meta")), (d, d.to("meta"))):
+        with pytest.raises(ValueError):
+            tmatch.hamming_matrix_packed(*bad)
 
 
 def test_kernel_library_is_named_by_its_sources():

@@ -133,3 +133,31 @@ def test_create_mappoints_matches(leaves5, n_outliers):
                                   t(uv), t(create), t(center), torch.tensor(True), t(depth))
     assert int(tn) == int(jn)
     assert_state_equal(ts, {k: np.asarray(v) for k, v in js._asdict().items()})
+
+
+def test_incidence_from_obs_matches(leaves5):
+    want = np.asarray(jms.incidence_from_obs(jax_state(leaves5)))
+    s = tms.state_from_numpy(leaves5)
+    np.testing.assert_array_equal(tms.incidence_from_obs(s).numpy(), want)
+    # the incremental cache agrees with the rebuild, as in tests/test_mapstate.py
+    np.testing.assert_array_equal(tms.incidence(s).numpy(), want)
+    assert want.sum() == leaves5["obs_valid"].sum()
+
+
+@pytest.mark.parametrize("n_rows,p_prune", [(64, 0.3), (256, 1.0), (8, 0.0)])
+def test_remove_observations_rows_matches(leaves5, n_rows, p_prune):
+    """BA's compact write-back: random rows of valid mappoints (some rows
+    invalid), random slots pruned; p_prune = 1 empties whole points, which
+    become outliers."""
+    rng = np.random.default_rng(n_rows)
+    M = leaves5["obs_kf"].shape[0]
+    pidx = rng.choice(np.flatnonzero(leaves5["mp_valid"]), n_rows, replace=False).astype(np.int32)
+    pval = rng.random(n_rows) < 0.8
+    pidx[~pval] = 0  # invalid rows hold slot 0, as compact_indices leaves them
+    prune = rng.random((n_rows, M)) < p_prune
+    js = jms.remove_observations_rows(jax_state(leaves5), jnp.asarray(pidx), jnp.asarray(pval), jnp.asarray(prune))
+    ts = tms.remove_observations_rows(tms.state_from_numpy(leaves5), t(pidx).long(), t(pval), t(prune))
+    assert_state_equal(ts, {k: np.asarray(v) for k, v in js._asdict().items()}, atol=0)
+    np.testing.assert_array_equal(tms.incidence_from_obs(ts).numpy(), ts.A_inc.numpy())
+    if p_prune == 1.0:
+        assert ts.mp_outlier[t(pidx).long()[t(pval)]].all()
