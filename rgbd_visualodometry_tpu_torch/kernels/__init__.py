@@ -1,7 +1,8 @@
 """Build, binding and launch counters of the port's hand-written CUDA kernels.
 
 The sources in ``rgbd_visualodometry_tpu_torch/csrc/*.cu`` are compiled at
-first use by ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+first use by ``nvcc`` for ``sm_90a`` - one ``nvcc`` per source, all started
+together, then one link - into one shared library with a plain C
 interface, under ``rgbd_visualodometry_tpu_torch/_build/`` (named by a hash
 of the sources, so an edited source is rebuilt), and loaded with ctypes.
 Pointers and the current CUDA stream pass as ``c_void_p``.  Every C entry
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
@@ -73,14 +74,26 @@ def build(verbose: bool = False) -> pathlib.Path:
         if not path.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+            nvcc = _nvcc()
+            objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in _sources()]
+            compiles = []
+            for src, obj in zip(_sources(), objs):
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                if verbose:
+                    cmd.insert(1, "--ptxas-options=-v")
+                compiles.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            logs = [(proc.communicate()[0], proc.returncode) for proc in compiles]
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True) if all(rc == 0 for _, rc in logs) else None
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            failed = [(out, rc) for out, rc in logs if rc != 0]
+            if link is not None and link.returncode != 0:
+                failed.append((link.stdout + link.stderr, link.returncode))
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(f"({rc}) {out}" for out, rc in failed))
             if verbose:
-                cmd.insert(1, "--ptxas-options=-v")
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-            if verbose:
-                print(proc.stdout + proc.stderr)
+                print("".join(out for out, _ in logs))
             os.replace(tmp, path)
         lib = ctypes.CDLL(str(path))
         for k in KERNELS:
@@ -104,17 +117,19 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        self._fn = None  # the bound C entry point, once the library is loaded
 
     def launch(self, *args) -> None:
         """Launch on the current stream; tensors pass as their data pointers."""
         import torch
 
-        build()
-        conv = []
-        for a in args:
-            conv.append(a.data_ptr() if isinstance(a, torch.Tensor) else a)
+        fn = self._fn
+        if fn is None:  # first launch: build and bind (under the lock)
+            build()
+            fn = self._fn = getattr(_lib, self.symbol)
+        conv = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
         conv.append(torch.cuda.current_stream().cuda_stream)
-        err = getattr(_lib, self.symbol)(*conv)
+        err = fn(*conv)
         if err != 0:
             msg = _lib.rgbdvo_error_string(err).decode()
             raise RuntimeError(f"kernel {self.name} failed to launch: {msg} ({err})")
@@ -125,7 +140,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 FAST_NMS = Kernel(
-    "fast_nms", "rgbdvo_fast_nms", [_P, _P, _I, _I, _P],
+    "fast_nms", "rgbdvo_fast_nms_pyramid", [_P, _I, _P],
     source="rgbd_visualodometry_tpu_torch/csrc/fast_nms.cu",
     replaces="rgbd_visualodometry_tpu/ops/pallas_fast.py:30",
 )

@@ -74,7 +74,17 @@ def _i32(v, device):
     return torch.tensor(v, dtype=torch.int32, device=device)
 
 
-def init_state(cfg, seed: int = 0, device="cpu") -> VOState:
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  A CUDA device must exist: the port
+    runs on the CPU only where the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"no CUDA device for {dev}; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def init_state(cfg, seed: int = 0, device="cuda") -> VOState:
+    device = resolve_device(device)
     K, C, M = cfg.max_keyframes, cfg.max_mappoints, cfg.max_obs_per_mappoint
     f32 = torch.float32
     z = lambda *s, dt=f32: torch.zeros(s, dtype=dt, device=device)  # noqa: E731
@@ -112,10 +122,11 @@ _CMINOR = {
 }
 
 
-def state_from_numpy(leaves: dict, device="cpu") -> VOState:
+def state_from_numpy(leaves: dict, device="cuda") -> VOState:
     """A JAX ``VOState`` as numpy leaves (``jax.device_get(s)._asdict()``)
     -> the port's state: C-minor leaves transposed, ``mp_bip`` dropped,
     uint32 words reinterpreted as int32 bit patterns, the key kept."""
+    device = resolve_device(device)
     out = {}
     for f in dataclasses.fields(VOState):
         a = np.asarray(leaves[f.name])

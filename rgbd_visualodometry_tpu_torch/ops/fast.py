@@ -1,8 +1,9 @@
 """FAST-9/16 corner detection with 3x3 NMS, and Harris ranking.
 
 Counterpart of ``rgbd_visualodometry_tpu/ops/fast.py``.  The NMS'd FAST
-score map comes from kernel K1 (``csrc/fast_nms.cu``) for a CUDA tensor and
-from :func:`fast_nms_reference`, its plain torch version, for a CPU tensor.
+score map comes from kernel K1 (``csrc/fast_nms.cu``, every level of a
+pyramid in one launch: :func:`fast_nms_pyramid`) for CUDA tensors and from
+:func:`fast_nms_reference`, its plain torch version, for CPU tensors.
 Both compute ``where(s >= maxpool3x3(s), s, 0)`` with ``s = fast_score``
 over the edge-padded image and a -inf padded NMS window - the function the
 reference's main path computes in XLA (``fast.py:113-117``) and its Pallas
@@ -12,6 +13,7 @@ max are involved, so the two agree bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -53,20 +55,40 @@ def fast_nms_reference(gray: torch.Tensor) -> torch.Tensor:
     return torch.where(score >= im.maxpool3x3(score), score, torch.zeros_like(score))
 
 
+MAX_LEVELS_PER_LAUNCH = 8  # kMaxLevels of csrc/fast_nms.cu
+
+
+def fast_nms_pyramid(levels) -> list[torch.Tensor]:
+    """NMS'd FAST-9 score maps of a list of float32 ``[H, W]`` images on one
+    device: on CUDA one launch of kernel K1 per 8 levels, whose outputs are
+    views of one flat buffer; on the CPU the plain version per level."""
+    levels = list(levels)
+    for g in levels:
+        if g.dim() != 2 or g.dtype != torch.float32 or g.numel() == 0:
+            raise ValueError(f"fast_nms takes non-empty float32 [H, W] images, got {g.dtype} {tuple(g.shape)}")
+    devices = {g.device for g in levels}
+    if len(devices) > 1:
+        raise ValueError(f"fast_nms_pyramid: levels on several devices {devices}")
+    dev = devices.pop() if devices else torch.device("cpu")
+    if dev.type == "cpu":
+        return [fast_nms_reference(g) for g in levels]
+    if dev.type != "cuda":
+        raise ValueError(f"fast_nms: no kernel for device {dev}")
+    levels = [g.contiguous() for g in levels]
+    flat = torch.empty(sum(g.numel() for g in levels), dtype=torch.float32, device=dev)
+    outs = [o.view(g.shape) for o, g in zip(torch.split(flat, [g.numel() for g in levels]), levels)]
+    for i in range(0, len(levels), MAX_LEVELS_PER_LAUNCH):
+        rows = [(g.data_ptr(), o.data_ptr(), *g.shape) for g, o in
+                zip(levels[i : i + MAX_LEVELS_PER_LAUNCH], outs[i : i + MAX_LEVELS_PER_LAUNCH])]
+        table = (ctypes.c_int64 * (4 * len(rows)))(*[v for row in rows for v in row])
+        kernels.FAST_NMS.launch(ctypes.addressof(table), len(rows))
+    return outs
+
+
 def fast_nms(gray: torch.Tensor) -> torch.Tensor:
-    """NMS'd FAST-9 score map ``[H, W]`` float32: kernel K1 on CUDA, the
-    plain version on the CPU."""
-    if gray.dim() != 2 or gray.dtype != torch.float32:
-        raise ValueError(f"fast_nms takes a float32 [H, W] image, got {gray.dtype} {tuple(gray.shape)}")
-    if gray.device.type == "cpu":
-        return fast_nms_reference(gray)
-    if gray.device.type != "cuda":
-        raise ValueError(f"fast_nms: no kernel for device {gray.device}")
-    gray = gray.contiguous()
-    h, w = gray.shape
-    out = torch.empty_like(gray)
-    kernels.FAST_NMS.launch(gray, out, h, w)
-    return out
+    """NMS'd FAST-9 score map ``[H, W]`` float32 of one image: kernel K1
+    with a one-level table on CUDA, the plain version on the CPU."""
+    return fast_nms_pyramid([gray])[0]
 
 
 def harris_response(gray: torch.Tensor, k: float = 0.04) -> torch.Tensor:
@@ -81,14 +103,16 @@ def harris_response(gray: torch.Tensor, k: float = 0.04) -> torch.Tensor:
     return im.fma(-(k * tr), tr, det) * (1.0 / (255.0**4))
 
 
-def detect_level(gray: torch.Tensor, threshold: float, border: int, topk: int):
-    """Up to ``topk`` FAST corners of one level, Harris-ranked.  Returns
-    ``(xy int64 [topk, 2] as (x, y), response [topk], valid bool [topk])``."""
+def detect_level(gray: torch.Tensor, threshold: float, border: int, topk: int, nms=None):
+    """Up to ``topk`` FAST corners of one level, Harris-ranked.  ``nms`` is
+    the level's NMS'd score map if the caller computed it already (for all
+    levels at once, :func:`fast_nms_pyramid`).  Returns ``(xy int64
+    [topk, 2] as (x, y), response [topk], valid bool [topk])``."""
     if threshold < 0:
         raise ValueError("fast threshold must be >= 0")
     h, w = gray.shape
     # nms > threshold  <=>  score > threshold and score is the window max
-    mask = fast_nms(gray) > threshold
+    mask = (fast_nms(gray) if nms is None else nms) > threshold
     ys = torch.arange(h, device=gray.device)[:, None]
     xs = torch.arange(w, device=gray.device)[None, :]
     in_border = (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)

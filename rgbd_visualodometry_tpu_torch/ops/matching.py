@@ -2,8 +2,9 @@
 
 Counterpart of ``rgbd_visualodometry_tpu/ops/matching.py``.  The
 pose-independent half, :func:`nearest_keypoints_packed`, is kernel K2
-(``csrc/hamming_nn.cu``) on CUDA and :func:`hamming_nn_reference`, its
-plain torch version, on the CPU.  Both read the packed descriptors, so the
+(``csrc/hamming_nn.cu``: popc(a & b) of the packed words on single-bit
+tensor cores, the masked argmin fused) on CUDA and
+:func:`hamming_nn_reference`, its plain torch version, on the CPU.  Both read the packed descriptors, so the
 port keeps no ``[C, 256]`` bipolar pool: the reference's two matching
 layouts give identical distances (``tests/test_pipeline.py:329-340``) and
 both map to this one path.  The adaptive distance gate
@@ -84,8 +85,8 @@ def nearest_keypoints_packed(cand_desc: torch.Tensor, kp_desc: torch.Tensor, kp_
     cand_desc = cand_desc.contiguous()
     kp_desc = kp_desc.contiguous()
     kp_mask = kp_mask.contiguous()
-    if cand_desc.data_ptr() % 16:
-        raise ValueError("cand_desc must be 16-byte aligned")
+    if cand_desc.data_ptr() % 16 or kp_desc.data_ptr() % 16:
+        raise ValueError("descriptors must be 16-byte aligned")
     C, N = cand_desc.shape[0], kp_desc.shape[0]
     kp_index = torch.empty(C, dtype=torch.int32, device=dev)
     distance = torch.empty(C, dtype=torch.int32, device=dev)

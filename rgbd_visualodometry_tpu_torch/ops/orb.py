@@ -154,13 +154,15 @@ def extract(
     quotas = im.features_per_level(nfeatures, nlevels, scale)
     scales = im.level_scales(nlevels, scale)
     dev = gray.device
+    used = [lvl for lvl, quota in enumerate(quotas) if quota > 0]
+    nms = dict(zip(used, fast.fast_nms_pyramid([pyr[lvl] for lvl in used])))  # K1: one launch
     parts = []
     for lvl, (img, quota, sc) in enumerate(zip(pyr, quotas, scales)):
         if quota == 0:
             continue
         h, w = img.shape
         b = min(border, max((min(h, w) - 2 * PATCH_R - 2) // 2, PATCH_R + 1))
-        xy, resp, valid = fast.detect_level(img, threshold, b, quota)
+        xy, resp, valid = fast.detect_level(img, threshold, b, quota, nms=nms[lvl])
         angle = _orientation(im.edge_pad(img, PATCH_R, PATCH_R, PATCH_R, PATCH_R), xy)
         per_rad = torch.tensor(angle_bins / (2.0 * np.pi), dtype=torch.float32, device=dev)
         qbin = torch.floor(im.fma(angle, per_rad, torch.full_like(angle, 0.5))).long() % angle_bins

@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from rgbd_visualodometry_tpu_torch import mapstate
-from rgbd_visualodometry_tpu_torch._shared import TrajectoryWriter
 from rgbd_visualodometry_tpu_torch.camera import Camera
+from rgbd_visualodometry_tpu_torch.io.trajectory import TrajectoryWriter
 from rgbd_visualodometry_tpu_torch.mapstate import LOST
 from rgbd_visualodometry_tpu_torch.pipeline import backend
 from rgbd_visualodometry_tpu_torch.pipeline import frontend as frontend_mod
@@ -55,17 +55,17 @@ class FrameResult:
 class VisualOdometry:
     """Usage::
 
-        vo = VisualOdometry(cfg, device="cuda")
+        vo = VisualOdometry(cfg)  # on the CUDA device; device="cpu" for the CPU
         for rgb, depth, t in frames:
             res = vo.process(rgb, depth, t)
     """
 
-    def __init__(self, cfg, seed: int = 0, device="cpu"):
+    def __init__(self, cfg, seed: int = 0, device="cuda"):
         if cfg.enable_viewer:
             raise NotImplementedError("viewer: see ROADMAP")
         if cfg.relax_every_kf:
             raise NotImplementedError("online loop closure (relax_every_kf): see ROADMAP")
-        self.device = torch.device(device)
+        self.device = mapstate.resolve_device(device)
         if self.device.type == "cuda":
             # full float32 for the resize matmuls and the plain Hamming check
             torch.backends.cuda.matmul.allow_tf32 = False

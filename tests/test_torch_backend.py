@@ -36,7 +36,8 @@ from test_backend import build_scene_state, perturb_state, small_cfg
 from torch_parity import small_cfgs, small_scene, x64_off  # noqa: F401
 from rgbd_visualodometry_tpu.pipeline import backend as jbackend
 from rgbd_visualodometry_tpu.pipeline.system import VisualOdometry as JaxVO
-from rgbd_visualodometry_tpu_torch import _shared
+from rgbd_visualodometry_tpu_torch import config as tconfig
+from rgbd_visualodometry_tpu_torch.io import synthetic
 from rgbd_visualodometry_tpu_torch import mapstate as tms
 from rgbd_visualodometry_tpu_torch.camera import Camera
 from rgbd_visualodometry_tpu_torch.pipeline import backend as tbackend
@@ -52,7 +53,7 @@ def leaves_of(state) -> dict:
 
 
 def port_cfg(jcfg):
-    return _shared.VOConfig(**dataclasses.asdict(jcfg))
+    return tconfig.VOConfig(**dataclasses.asdict(jcfg))
 
 
 def _scene(case):
@@ -60,7 +61,7 @@ def _scene(case):
     if case == "pipeline":
         _, jcfg = small_cfgs(enable_local_optimization=True)
         vo = JaxVO(jcfg)
-        vo.run((f.rgb, f.depth, f.timestamp) for f in _shared.generate_sequence(10, scene=small_scene()))
+        vo.run((f.rgb, f.depth, f.timestamp) for f in synthetic.generate_sequence(10, scene=small_scene()))
         assert int(vo.state.num_kf) >= 2
         return jcfg, vo.camera, vo.state, int(vo.state.num_kf) - 1
     jcfg = small_cfg()
@@ -82,7 +83,7 @@ def scenes(x64_off):
 def test_build_problem_matches(scenes, case):
     jcfg, _, state, kf = scenes[case]
     want = jbackend.build_problem(jcfg, state, jnp.int32(kf))
-    got = tbackend.build_problem(port_cfg(jcfg), tms.state_from_numpy(leaves_of(state)), kf)
+    got = tbackend.build_problem(port_cfg(jcfg), tms.state_from_numpy(leaves_of(state), device="cpu"), kf)
     for name in _EXACT:
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)), err_msg=name)
     # the one-hot rows of the reference are the port's window positions
@@ -100,7 +101,7 @@ def _both_ba(scene, **kw):
     jcfg = jcfg.replace(**kw)
     js, jo = jax.jit(lambda s: jbackend.ba_step(jcfg, cam, s, jnp.int32(kf)))(state)
     cfg = port_cfg(jcfg)
-    ts, to = tbackend.ba_step(cfg, Camera.from_config(cfg), tms.state_from_numpy(leaves_of(state)), kf)
+    ts, to = tbackend.ba_step(cfg, Camera.from_config(cfg), tms.state_from_numpy(leaves_of(state), device="cpu"), kf)
     return leaves_of(js), jo, tms.state_to_numpy(ts), to
 
 
@@ -138,7 +139,7 @@ def _port_scene(cfg_kw=None, with_depth=True, rng_seed=None, edit=None):
     if edit:
         edit(leaves)
     cfg = port_cfg(jcfg)
-    return cfg, Camera.from_config(cfg), tms.state_from_numpy(leaves), np.array(poses_true), np.array(pts_true)
+    return cfg, Camera.from_config(cfg), tms.state_from_numpy(leaves, device="cpu"), np.array(poses_true), np.array(pts_true)
 
 
 def _pose_err(state, poses_true):
@@ -171,7 +172,7 @@ def test_ba_behaviour(behaviour):
     """The behavioural contract of ``tests/test_backend.py:124-227``, on the port."""
     if behaviour == "empty_window":
         cfg = port_cfg(small_cfg())
-        state = tms.init_state(cfg)
+        state = tms.init_state(cfg, device="cpu")
         state2, out = tbackend.ba_step(cfg, Camera.from_config(cfg), state, 0)
         assert int(out.num_poses) == 0 and int(out.num_points) == 0
         assert torch.isfinite(state2.mp_pos).all() and torch.isfinite(state2.kf_pose).all()

@@ -25,7 +25,7 @@ from torch_parity import inject_reference_pyramid, quat_angle_deg, small_cfgs, s
 from rgbd_visualodometry_tpu import mapstate as jms
 from rgbd_visualodometry_tpu.pipeline.frontend import StepOutput as JaxStepOutput
 from rgbd_visualodometry_tpu.pipeline.system import VisualOdometry as JaxVO
-from rgbd_visualodometry_tpu_torch import _shared
+from rgbd_visualodometry_tpu_torch.io import synthetic
 from rgbd_visualodometry_tpu_torch import mapstate as tms
 from rgbd_visualodometry_tpu_torch.camera import Camera
 from rgbd_visualodometry_tpu_torch.pipeline import frontend as tfe
@@ -35,7 +35,7 @@ pytestmark = pytest.mark.usefixtures("x64_off", "inject_reference_pyramid")
 
 @pytest.fixture(scope="module")
 def seq():
-    return _shared.generate_sequence(7, scene=small_scene())
+    return synthetic.generate_sequence(7, scene=small_scene())
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +54,7 @@ def _jax_step(vo, leaves, frame):
 
 
 def _port_step(cfg, leaves, frame):
-    state = tms.state_from_numpy(leaves)
+    state = tms.state_from_numpy(leaves, device="cpu")
     fin = tfe.frame_input(frame.rgb, frame.depth, frame.timestamp, "cpu")
     new, out = tfe.track_step(cfg, Camera.from_config(cfg), state, fin)
     return tms.state_to_numpy(new), out.packed.numpy()

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from rgbd_visualodometry_tpu_torch import _shared, kernels
+from rgbd_visualodometry_tpu_torch import kernels
+from rgbd_visualodometry_tpu_torch.io import synthetic
 from rgbd_visualodometry_tpu_torch.ops import fast, image as im, matching
 
 
@@ -27,7 +28,7 @@ def cuda():
 
 
 def _images():
-    sc = _shared.SyntheticScene(width=320, height=240, fx=258.6, fy=258.2, cx=159.3, cy=127.6)
+    sc = synthetic.SyntheticScene(width=320, height=240, fx=258.6, fy=258.2, cx=159.3, cy=127.6)
     gray = im.rgb_to_gray(torch.from_numpy(sc.render(np.array([1.0, 0, 0, 0, 0.02, 0, 0])).rgb))
     rng = np.random.default_rng(0)
     noise = torch.from_numpy(rng.uniform(0, 255, (97, 203)).astype(np.float32))
@@ -50,6 +51,10 @@ def _nn_case(case):
     elif case == "wide":  # more keypoints than the default dynamic shared memory holds
         kp = words(3000)
         mask = rng.random(3000) >= 0.1
+    elif case == "n37":  # N not a multiple of the 8-keypoint tile, C of the 128-row block
+        kp, mask, cand = kp[:37], mask[:37], cand[:1000]
+    elif case == "main":  # the main path's shape
+        cand = words(16384)
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in (cand.view(np.int32), kp.view(np.int32), mask)]
 
 
@@ -65,7 +70,26 @@ def test_fast_nms_kernel_bit_exact(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["random", "ties", "ragged", "all_masked", "wide"])
+def test_fast_nms_pyramid_one_launch(cuda):
+    """All levels of a pyramid in one launch: an odd-sized 641x479 frame's
+    8 levels, a table with 1x1 and 5x7 levels, and 10 levels (two launches
+    of at most 8)."""
+    rng = np.random.default_rng(1)
+    odd = torch.from_numpy(rng.uniform(0, 255, (479, 641)).astype(np.float32))
+    odd = im.gaussian_blur(odd, 7, 2.0)
+    tables = [im.build_pyramid(odd, 8, 1.2), _images()[4:] + _images()[:2], im.build_pyramid(odd, 10, 1.2)]
+    for levels, launches in zip(tables, (1, 1, 2)):
+        g = [lv.contiguous().to(cuda) for lv in levels]
+        before = kernels.FAST_NMS.launches
+        got = fast.fast_nms_pyramid(g)
+        torch.cuda.synchronize()
+        assert kernels.FAST_NMS.launches == before + launches
+        for a, lv in zip(got, g):
+            assert torch.equal(a, fast.fast_nms_reference(lv)), tuple(lv.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "ties", "ragged", "all_masked", "wide", "n37", "main"])
 def test_hamming_nn_kernel_exact(cuda, case):
     args = [a.to(cuda) for a in _nn_case(case)]
     before = kernels.HAMMING_NN.launches

@@ -70,6 +70,23 @@ def test_fast_nms_reference_exact_on_a_frame():
     assert (got > 20).sum() > 300
 
 
+def test_fast_nms_pyramid_equals_per_level_reference():
+    """The pyramid wrapper on the CPU: the plain version per level, in
+    order, at odd sizes, with 1x1 and 5x7 levels in the table and more
+    levels than one launch of the kernel takes."""
+    rng = np.random.default_rng(4)
+    shapes = [(479, 641), (399, 534), (333, 445), (1, 1), (5, 7), (97, 203), (9, 9), (31, 17), (2, 40), (40, 2)]
+    imgs = [t(_blocks(s, i) if min(s) > 30 else rng.uniform(0, 255, s).astype(np.float32)) for i, s in enumerate(shapes)]
+    assert len(imgs) > tfast.MAX_LEVELS_PER_LAUNCH
+    got = tfast.fast_nms_pyramid(imgs)
+    assert [tuple(g.shape) for g in got] == shapes
+    for g, img in zip(got, imgs):
+        assert g.dtype == torch.float32 and torch.equal(g, tfast.fast_nms_reference(img))
+    for i in (0, 5):
+        np.testing.assert_array_equal(asnp(got[i]), _jax_nms(asnp(imgs[i])))
+    assert tfast.fast_nms_pyramid([]) == []
+
+
 @pytest.mark.parametrize("shape", [(120, 160), (64, 128)])
 def test_fast_nms_reference_vs_pallas_interpret(shape):
     img = _blocks(shape, 1)
@@ -160,6 +177,8 @@ def test_wrappers_take_the_plain_version_on_cpu():
     kernels.reset_counts()
     img = t(_blocks((64, 96), 2))
     assert torch.equal(tfast.fast_nms(img), tfast.fast_nms_reference(img))
+    for a, b in zip(tfast.fast_nms_pyramid([img, img[::2, ::3]]), (img, img[::2, ::3])):
+        assert torch.equal(a, tfast.fast_nms_reference(b))
     cand, kp, mask = _nn_cases()["random"]
     a = tmatch.nearest_keypoints_packed(t(cand.view(np.int32)), t(kp.view(np.int32)), t(mask))
     b = tmatch.hamming_nn_reference(t(cand.view(np.int32)), t(kp.view(np.int32)), t(mask))
@@ -176,6 +195,10 @@ def test_wrappers_check_their_inputs():
         tfast.fast_nms(torch.zeros(2, 8, 8))
     with pytest.raises(ValueError):
         tfast.fast_nms(torch.zeros(8, 8, device="meta"))
+    with pytest.raises(ValueError):
+        tfast.fast_nms(torch.zeros(0, 8))
+    with pytest.raises(ValueError):
+        tfast.fast_nms_pyramid([torch.zeros(8, 8), torch.zeros(8, 8, device="meta")])
     d = torch.zeros(4, 8, dtype=torch.int32)
     with pytest.raises(ValueError):
         tmatch.nearest_keypoints_packed(d, d, torch.ones(3, dtype=torch.bool))

@@ -17,7 +17,7 @@ import torch
 from torch_parity import small_cfgs, small_scene, t, x64_off  # noqa: F401
 from rgbd_visualodometry_tpu import mapstate as jms
 from rgbd_visualodometry_tpu.pipeline.system import VisualOdometry as JaxVO
-from rgbd_visualodometry_tpu_torch import _shared
+from rgbd_visualodometry_tpu_torch.io import synthetic
 from rgbd_visualodometry_tpu_torch import mapstate as tms
 
 pytestmark = pytest.mark.usefixtures("x64_off")
@@ -45,7 +45,7 @@ def leaves5(x64_off):
     """The JAX package's state after 5 tracked frames (2 keyframes)."""
     _, jcfg = small_cfgs()
     vo = JaxVO(jcfg)
-    seq = _shared.generate_sequence(5, scene=small_scene())
+    seq = synthetic.generate_sequence(5, scene=small_scene())
     vo.run((f.rgb, f.depth, f.timestamp) for f in seq)
     leaves = {k: np.asarray(v) for k, v in jax.device_get(vo.state)._asdict().items()}
     assert leaves["num_kf"] >= 2 and leaves["mp_valid"].sum() > 300
@@ -56,11 +56,11 @@ def test_init_state_matches():
     cfg, jcfg = small_cfgs()
     for seed in (0, 5):
         want = {k: np.asarray(v) for k, v in jms.init_state(jcfg, seed)._asdict().items()}
-        assert_state_equal(tms.init_state(cfg, seed), want, atol=0)
+        assert_state_equal(tms.init_state(cfg, seed, device="cpu"), want, atol=0)
 
 
 def test_state_round_trip(leaves5):
-    s = tms.state_from_numpy(leaves5)
+    s = tms.state_from_numpy(leaves5, device="cpu")
     assert s.mp_pos.shape == (4096, 3) and s.obs_uv.shape == (4096, 8, 2)
     assert s.mp_desc.dtype == torch.int32 and s.rng.dtype == torch.int64
     assert_state_equal(s, leaves5, atol=0)
@@ -74,12 +74,12 @@ def test_tracking_map_mask_matches(leaves5):
     for ref in range(int(leaves5["num_kf"])):
         lv = dict(leaves5, ref_kf=np.int32(ref))
         want = np.asarray(jms.tracking_map_mask(jax_state(lv), jcfg))
-        got = tms.tracking_map_mask(tms.state_from_numpy(lv), cfg).numpy()
+        got = tms.tracking_map_mask(tms.state_from_numpy(lv, device="cpu"), cfg).numpy()
         np.testing.assert_array_equal(got, want)
     # whole-map fallback below tracking_map_min_points
     cfg2, jcfg2 = small_cfgs(tracking_map_min_points=100000)
     want = np.asarray(jms.tracking_map_mask(jax_state(leaves5), jcfg2))
-    np.testing.assert_array_equal(tms.tracking_map_mask(tms.state_from_numpy(leaves5), cfg2).numpy(), want)
+    np.testing.assert_array_equal(tms.tracking_map_mask(tms.state_from_numpy(leaves5, device="cpu"), cfg2).numpy(), want)
     assert want.sum() == (leaves5["mp_valid"] & ~leaves5["mp_outlier"]).sum()
 
 
@@ -95,7 +95,7 @@ def test_insert_keyframe_matches(leaves5, eviction, full, pred):
     pose = np.array([0.99, 0.1, 0.0, 0.05, 0.3, -0.2, 0.1], np.float32)
     pose[:4] /= np.linalg.norm(pose[:4])
     js, jslot, jins = jms.insert_keyframe(jax_state(lv), pose, jnp.float32(1.5), jnp.asarray(pred), eviction=eviction)
-    ts, tslot, tins = tms.insert_keyframe(tms.state_from_numpy(lv), t(pose), torch.tensor(1.5), torch.tensor(pred), eviction=eviction)
+    ts, tslot, tins = tms.insert_keyframe(tms.state_from_numpy(lv, device="cpu"), t(pose), torch.tensor(1.5), torch.tensor(pred), eviction=eviction)
     assert int(tslot) == int(jslot) and bool(tins) == bool(jins)
     assert_state_equal(ts, {k: np.asarray(v) for k, v in js._asdict().items()})
 
@@ -109,7 +109,7 @@ def test_add_observations_matches(leaves5):
     center = np.array([0.1, -0.05, 0.02], np.float32)
     for pred in (True, False):
         js = jms.add_observations(jax_state(leaves5), jnp.int32(2), mask, uv.T, center, jnp.asarray(pred), depth=depth)
-        ts = tms.add_observations(tms.state_from_numpy(leaves5), torch.tensor(2, dtype=torch.int32), t(mask), t(uv), t(center), torch.tensor(pred), t(depth))
+        ts = tms.add_observations(tms.state_from_numpy(leaves5, device="cpu"), torch.tensor(2, dtype=torch.int32), t(mask), t(uv), t(center), torch.tensor(pred), t(depth))
         assert_state_equal(ts, {k: np.asarray(v) for k, v in js._asdict().items()})
 
 
@@ -129,7 +129,7 @@ def test_create_mappoints_matches(leaves5, n_outliers):
     center = np.array([0.0, 0.1, -0.1], np.float32)
     bip = np.zeros((N, 0), np.int8)
     js, jn = jms.create_mappoints(jax_state(lv), jnp.int32(1), pos, desc, bip, uv, create, center, jnp.asarray(True), depth=depth)
-    ts, tn = tms.create_mappoints(tms.state_from_numpy(lv), torch.tensor(1, dtype=torch.int32), t(pos), t(desc.view(np.int32)),
+    ts, tn = tms.create_mappoints(tms.state_from_numpy(lv, device="cpu"), torch.tensor(1, dtype=torch.int32), t(pos), t(desc.view(np.int32)),
                                   t(uv), t(create), t(center), torch.tensor(True), t(depth))
     assert int(tn) == int(jn)
     assert_state_equal(ts, {k: np.asarray(v) for k, v in js._asdict().items()})
@@ -137,7 +137,7 @@ def test_create_mappoints_matches(leaves5, n_outliers):
 
 def test_incidence_from_obs_matches(leaves5):
     want = np.asarray(jms.incidence_from_obs(jax_state(leaves5)))
-    s = tms.state_from_numpy(leaves5)
+    s = tms.state_from_numpy(leaves5, device="cpu")
     np.testing.assert_array_equal(tms.incidence_from_obs(s).numpy(), want)
     # the incremental cache agrees with the rebuild, as in tests/test_mapstate.py
     np.testing.assert_array_equal(tms.incidence(s).numpy(), want)
@@ -156,7 +156,7 @@ def test_remove_observations_rows_matches(leaves5, n_rows, p_prune):
     pidx[~pval] = 0  # invalid rows hold slot 0, as compact_indices leaves them
     prune = rng.random((n_rows, M)) < p_prune
     js = jms.remove_observations_rows(jax_state(leaves5), jnp.asarray(pidx), jnp.asarray(pval), jnp.asarray(prune))
-    ts = tms.remove_observations_rows(tms.state_from_numpy(leaves5), t(pidx).long(), t(pval), t(prune))
+    ts = tms.remove_observations_rows(tms.state_from_numpy(leaves5, device="cpu"), t(pidx).long(), t(pval), t(prune))
     assert_state_equal(ts, {k: np.asarray(v) for k, v in js._asdict().items()}, atol=0)
     np.testing.assert_array_equal(tms.incidence_from_obs(ts).numpy(), ts.A_inc.numpy())
     if p_prune == 1.0:

@@ -277,6 +277,38 @@ def test_orb_extract_bit_identical_on_the_same_pyramid():
     np.testing.assert_allclose(asnp(got.angle), np.asarray(want.angle), atol=1e-4)
 
 
+@pytest.mark.usefixtures("inject_reference_pyramid")
+def test_orb_extract_takes_all_levels_nms_in_one_call(monkeypatch):
+    """``orb.extract`` computes every used level's NMS map with one
+    ``fast_nms_pyramid`` call (one kernel launch on a card) and no
+    per-level ``fast_nms``, and still equals the JAX package slot for slot
+    on the reference's pyramid."""
+    calls = []
+    pyramid = tfast.fast_nms_pyramid
+
+    def spy(levels):
+        calls.append([tuple(g.shape) for g in levels])
+        return pyramid(levels)
+
+    def per_level(gray):
+        raise AssertionError("orb.extract called the one-level fast_nms")
+
+    monkeypatch.setattr(tfast, "fast_nms_pyramid", spy)
+    monkeypatch.setattr(tfast, "fast_nms", per_level)
+    gray, _ = _frame_gray()
+    cfg = small_cfgs()[1]
+    got = _port_extract(gray, cfg)
+    quotas = jim.features_per_level(cfg.number_of_features, cfg.level_pyramid, cfg.scale_factor)
+    assert len(calls) == 1 and len(calls[0]) == sum(q > 0 for q in quotas) == cfg.level_pyramid
+    assert calls[0][0] == gray.shape
+    want = _jax_extract(gray, cfg)
+    v = np.asarray(want.valid)
+    np.testing.assert_array_equal(asnp(got.valid), v)
+    np.testing.assert_array_equal(asnp(got.xy), np.asarray(want.xy))
+    np.testing.assert_array_equal(asnp(got.response), np.asarray(want.response))
+    np.testing.assert_array_equal(asnp(got.desc).view(np.uint32)[v], np.asarray(want.desc)[v])
+
+
 def test_orb_extract_own_pyramid_level0_identical():
     """With the port's own resize, level 0 (no resize) is still identical
     slot for slot; the resized levels keep most keypoints."""

@@ -31,7 +31,8 @@ import pytest
 from torch_parity import quat_angle_deg, reference_pyramid, small_cfgs, small_scene, x64_off  # noqa: F401
 from rgbd_visualodometry_tpu.io.trajectory import read_trajectory
 from rgbd_visualodometry_tpu.pipeline.system import VisualOdometry as JaxVO
-from rgbd_visualodometry_tpu_torch import VisualOdometry, _shared
+from rgbd_visualodometry_tpu_torch import VisualOdometry
+from rgbd_visualodometry_tpu_torch.io import synthetic
 from rgbd_visualodometry_tpu_torch.evaltools import ate_rmse
 from rgbd_visualodometry_tpu_torch.mapstate import LOST
 
@@ -42,7 +43,7 @@ pytestmark = pytest.mark.usefixtures("x64_off")
 
 @pytest.fixture(scope="module")
 def seq():
-    return _shared.generate_sequence(10, scene=small_scene())
+    return synthetic.generate_sequence(10, scene=small_scene())
 
 
 @pytest.fixture(scope="module")
@@ -52,14 +53,14 @@ def jax_results(x64_off, seq):
 
 
 def _ate(results, seq):
-    gt = [_shared.pose_inverse(f.T_c_w)[4:7] for f in seq]
+    gt = [synthetic._pose_inverse(f.T_c_w)[4:7] for f in seq]
     tr = [r for r in results if r.tracked]
     return ate_rmse([r.timestamp for r in tr], [r.pose_w_c[4:7] for r in tr], [f.timestamp for f in seq], gt)
 
 
 def _run(seq, **kw):
     cfg, _ = small_cfgs(**kw)
-    vo = VisualOdometry(cfg)
+    vo = VisualOdometry(cfg, device="cpu")
     return vo, vo.run((f.rgb, f.depth, f.timestamp) for f in seq)
 
 
@@ -90,7 +91,7 @@ def test_slice_on_its_own_pyramid(seq, jax_results):
 def test_full_vo_matches_on_the_same_pyramid(monkeypatch):
     from rgbd_visualodometry_tpu_torch.ops import image as tim
 
-    seq = _shared.generate_sequence(15, scene=small_scene())
+    seq = synthetic.generate_sequence(15, scene=small_scene())
     cfg, jcfg = small_cfgs(enable_local_optimization=True)
     jvo = JaxVO(jcfg)
     jax_ba = jvo._ba
@@ -103,7 +104,7 @@ def test_full_vo_matches_on_the_same_pyramid(monkeypatch):
     jvo._ba = counted
     want = jvo.run((f.rgb, f.depth, f.timestamp) for f in seq)
     monkeypatch.setattr(tim, "build_pyramid", reference_pyramid)
-    vo = VisualOdometry(cfg)
+    vo = VisualOdometry(cfg, device="cpu")
     got = vo.run((f.rgb, f.depth, f.timestamp) for f in seq)
     assert len(got) == len(want) == len(seq) and all(r.tracked for r in got)
     for a, b in zip(got, want):
@@ -131,25 +132,49 @@ def test_evaltools_ate_matches_reference():
 
 
 def test_port_runs_without_jax():
+    """The port, imported and run for 8 CPU frames with BA in a fresh
+    process, loads no file of the JAX package - neither through an import
+    nor by file path - and never imports jax."""
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "import rgbd_visualodometry_tpu_torch as port\n"
-        "from rgbd_visualodometry_tpu_torch import _shared\n"
+        "from rgbd_visualodometry_tpu_torch.io import synthetic\n"
         "import torch; torch.set_num_threads(2)\n"
-        "cfg = _shared.VOConfig(image_width=160, image_height=120, camera_fx=129.3, camera_fy=129.1,"
+        "cfg = port.VOConfig(image_width=160, image_height=120, camera_fx=129.3, camera_fy=129.1,"
         " camera_cx=79.6, camera_cy=63.8, number_of_features=150, level_pyramid=3, max_keyframes=8,"
         " max_mappoints=1024, ba_max_points=256, packed_matching=True, enable_local_optimization=True)\n"
-        "sc = _shared.SyntheticScene(width=160, height=120, fx=129.3, fy=129.1, cx=79.6, cy=63.8)\n"
-        "vo = port.VisualOdometry(cfg)\n"
-        "res = vo.run((f.rgb, f.depth, f.timestamp) for f in _shared.generate_sequence(8, scene=sc))\n"
+        "sc = synthetic.SyntheticScene(width=160, height=120, fx=129.3, fy=129.1, cx=79.6, cy=63.8)\n"
+        "vo = port.VisualOdometry(cfg, device='cpu')\n"
+        "res = vo.run((f.rgb, f.depth, f.timestamp) for f in synthetic.generate_sequence(8, scene=sc))\n"
         "assert len(res) == 8 and res[0].tracked and vo.ba_dispatches > 0, (res, vo.ba_dispatches)\n"
-        "assert 'jax' not in sys.modules and 'rgbd_visualodometry_tpu' not in sys.modules\n"
-        "print('ok', sorted(m for m in sys.modules if m.startswith('jax')))\n"
+        "ref = os.path.join(sys.argv[1], 'rgbd_visualodometry_tpu') + os.sep\n"
+        "loaded = sorted(n for n, m in list(sys.modules.items())\n"
+        "                if os.path.abspath(getattr(m, '__file__', None) or '').startswith(ref))\n"
+        "print('ok', loaded, sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code, REPO], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert proc.stdout.strip() == "ok []"
+    assert proc.stdout.strip() == "ok [] []"
+
+
+def test_default_device_is_the_card():
+    """The entry points default to CUDA; without a card they raise instead
+    of running on the CPU."""
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import mapstate
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    cfg, _ = small_cfgs()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VisualOdometry(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mapstate.init_state(cfg)
+    leaves = {k: v.numpy() for k, v in vars(mapstate.init_state(cfg, device="cpu")).items()}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mapstate.state_from_numpy(leaves)
 
 
 def test_chip_smoke_runs_the_bench_workload():
@@ -178,7 +203,7 @@ def test_chip_smoke_runs_the_bench_workload():
 def test_trajectory_and_stats_files(tmp_path, seq):
     cfg, _ = small_cfgs()
     traj, stats = str(tmp_path / "traj.txt"), str(tmp_path / "stats.jsonl")
-    res = VisualOdometry(cfg).run(((f.rgb, f.depth, f.timestamp) for f in seq[:5]), trajectory_path=traj, stats_path=stats)
+    res = VisualOdometry(cfg, device="cpu").run(((f.rgb, f.depth, f.timestamp) for f in seq[:5]), trajectory_path=traj, stats_path=stats)
     ts, poses = read_trajectory(traj)
     assert len(ts) == 5
     np.testing.assert_allclose(poses[0], [1, 0, 0, 0, 0, 0, 0], atol=1e-6)
@@ -190,11 +215,11 @@ def test_trajectory_and_stats_files(tmp_path, seq):
 
 def test_staged_frames_match_numpy_path(seq):
     cfg, _ = small_cfgs()
-    a = VisualOdometry(cfg)
+    a = VisualOdometry(cfg, device="cpu")
     for f in seq[:4]:
         a.process_async(f.rgb, f.depth, f.timestamp)
     a.drain(0)
-    b = VisualOdometry(cfg)
+    b = VisualOdometry(cfg, device="cpu")
     staged = [(b.put_frame(f.rgb, f.depth, f.timestamp), f.timestamp) for f in seq[:4]]
     for fr, ts in staged:
         b.process_async(fr, timestamp=ts)
@@ -206,7 +231,7 @@ def test_staged_frames_match_numpy_path(seq):
 
 def test_lost_is_terminal_without_relocalization(seq):
     cfg, _ = small_cfgs(max_num_lost=2, enable_relocalization=False)
-    vo = VisualOdometry(cfg)
+    vo = VisualOdometry(cfg, device="cpu")
     for f in seq[:3]:
         vo.process(f.rgb, f.depth, f.timestamp)
     assert not vo.lost
@@ -223,4 +248,4 @@ def test_unsupported_options_raise():
     for kw in (dict(enable_viewer=True), dict(relax_every_kf=4)):
         cfg, _ = small_cfgs(**kw)
         with pytest.raises(NotImplementedError):
-            VisualOdometry(cfg)
+            VisualOdometry(cfg, device="cpu")

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from rgbd_visualodometry_tpu.config import VOConfig as JaxVOConfig
-from rgbd_visualodometry_tpu_torch import _shared
+from rgbd_visualodometry_tpu_torch import config as tconfig
+from rgbd_visualodometry_tpu_torch.io import synthetic
 
 # the suite runs in several worker processes: a few threads each
 torch.set_num_threads(2)
@@ -37,11 +38,11 @@ def small_cfgs(**kw):
     """``(port VOConfig, JAX VOConfig)`` of the small test configuration
     (``tests/test_pipeline.py::small_cfg`` with packed matching, no BA)."""
     params = dict(SMALL, **kw)
-    return _shared.VOConfig(**params), JaxVOConfig(**params)
+    return tconfig.VOConfig(**params), JaxVOConfig(**params)
 
 
 def small_scene(**kw):
-    return _shared.SyntheticScene(width=320, height=240, fx=258.6, fy=258.2, cx=159.3, cy=127.6, **kw)
+    return synthetic.SyntheticScene(width=320, height=240, fx=258.6, fy=258.2, cx=159.3, cy=127.6, **kw)
 
 
 @pytest.fixture(scope="module")
