@@ -14,14 +14,21 @@
    N = 500 keypoints x C = 16384 map rows with ~10% of the keypoint mask
    off, a tie-heavy case, a ragged C, an all-masked mask, N = 37 with
    C = 1000 and N = 3000; K3 ``hamming_matrix`` at C x N = 65536 x 512 (the
-   parity bench's shape), 16384 x 500 (the main path's), a ragged
-   16383 x 37 and C = 0.  Timed after steps 4-6, at the main path's shapes:
-   each kernel's wrapper-inclusive time (CUDA events around one call) and
-   its plain version's time, then its device time (torch.profiler), its
-   bound (the larger of its bytes at 3.35 TB/s and its operations at the
-   published peak of their type) and, for K2 and K3, ``torch._int_mm`` on
-   the bipolar operands as the library yardstick (the port never calls
-   it).
+   parity bench's shape), 16384 x 500 (the main path's), ragged C = 16383
+   with N = 500 and 37, rows that are not 16-byte aligned (N = 1, 7, 9,
+   37), C = 1, N = 3000 (several keypoint chunks), C = 0, N = 0 and a
+   tie-heavy pool (candidates equal to keypoints, every keypoint twice);
+   each nonempty case also through K3's C entry into a sentinel-guarded
+   buffer, at output offsets of 0 and 1 word (the vector and the one-word
+   store paths), which fails on any write outside [C, N].  Timed after
+   steps 4-6, at the main path's shapes: each kernel's wrapper-inclusive
+   time (CUDA events around one call) and its plain version's time, then
+   its device time (torch.profiler), its bound (the larger of its bytes at
+   3.35 TB/s and its operations at the published peak of their type) and,
+   for K2 and K3, ``torch._int_mm`` on the bipolar operands as the library
+   yardstick (the port never calls it); for K3 also a store-only pass over
+   its output (``fill_``) as the card's own write floor.  The SM clock and
+   its maximum (``nvidia-smi``) are printed before and after the timings.
 3. K3 path: the entry point ``matching.hamming_matrix_packed`` called once
    at 65536 x 512 with the launch counts reset just before it.
 4. Slice phase: ``VisualOdometry(cfg, device="cuda").run`` over 60 frames of
@@ -126,6 +133,14 @@ PEAK_OPS_PER_S = {"fp32": 67e12, "int8 tensor-core": 1979e12}
 K1_OPS_PER_PIXEL = 16 + 128 + 30 + 2 + 9
 
 
+def sm_clocks() -> str:
+    """The SM clock and its maximum now, as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def _median_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     """Median of CUDA events around single calls: the wrapper's host work
     (checks, allocation, the ctypes call) is inside the window."""
@@ -145,32 +160,40 @@ def _median_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_ms(fn, kernel: str | None, iters: int = 100) -> float:
+def _device_ms(fn, kernel: str | None, iters: int = 100, attempts: int = 3) -> float:
     """Device time (ms) of one call of ``fn``: the torch.profiler self device
     time of the kernels whose name holds ``kernel`` (every kernel if None)
-    over ``iters`` calls, per call.  Raises if the profiler recorded none."""
+    over ``iters`` calls, per call: the mean over the launches it recorded
+    times the launches per call.  The profiler drops an event now and then,
+    and once dropped nearly all: a window whose count of such launches is
+    more than 2% of ``iters`` away from a whole number per call is taken
+    again, up to ``attempts`` times, then this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:  # a host op also carries its kernels' time
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us and (kernel is None or kernel in e.key):
-            total_us += us
-    if total_us <= 0:
-        raise AssertionError(f"torch.profiler recorded no device time for kernel {kernel!r}")
-    return total_us / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, launches = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:  # a host op also carries its kernels' time
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            if us and (kernel is None or kernel in e.key):
+                total_us += us
+                launches += e.count
+        per_call = round(launches / iters)
+        if total_us > 0 and per_call >= 1 and abs(launches - per_call * iters) <= iters // 50:
+            return total_us / launches * per_call / 1e3
+    raise AssertionError(f"torch.profiler recorded {launches} device kernels for {kernel!r} over {iters} calls "
+                         f"in each of {attempts} windows")
 
 
 def _bound(nbytes: int, ops: int, op_type: str) -> tuple[float, str, str]:
@@ -214,12 +237,14 @@ def _int_mm_ms(cand, kp, n_pad: int, label: str, check=None):
     return _device_ms(lambda: torch._int_mm(a, b.t()), None), label
 
 
-def _timing(k, what, *, wrapper, plain, bound, device, library, max_abs_err, **extra) -> dict:
+def _timing(k, what, *, wrapper, plain, bound, device, library, max_abs_err, store_floor=None, **extra) -> dict:
     """One kernel's event timings, taken now, and its profiler timings
     (``device``: a function returning ms; ``library``: one returning
-    (ms or None, what)), taken later by :func:`_entry`."""
+    (ms or None, what); ``store_floor``: None or one returning the device
+    ms of a store-only pass over the kernel's output), taken later by
+    :func:`_entry`."""
     return dict(k=k, what=what, wrapper=wrapper, plain=plain, bound=bound, device=device, library=library,
-                max_abs_err=max_abs_err, extra=extra)
+                store_floor=store_floor, max_abs_err=max_abs_err, extra=extra)
 
 
 def _entry(t: dict) -> dict:
@@ -238,9 +263,14 @@ def _entry(t: dict) -> dict:
         library_ms=lib_ms, library_call=lib_how, **t["extra"],
     )
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms device time ({lib_how})"
+    floor = ""
+    if t["store_floor"] is not None:
+        e["store_floor_ms"] = t["store_floor"]()
+        floor = (f"; store-only pass over its output (fill_) {e['store_floor_ms']:.4f} ms, "
+                 f"{100 * e['store_floor_ms'] / device_ms:.1f}% of the kernel's time")
     print(f"{k.name} {t['what']}: device {device_ms:.4f} ms (torch.profiler), wrapper-inclusive events "
           f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({basis}), "
-          f"{100 * e['share_of_bound']:.1f}% of bound; library {lib}")
+          f"{100 * e['share_of_bound']:.1f}% of bound; library {lib}{floor}")
     return e
 
 
@@ -338,6 +368,25 @@ def kernel_phase(frame, cfg, dev):
     return timings
 
 
+def _guarded_k3(cand, kp, offset: int):
+    """K3's C entry on an output that is a view ``offset`` words into a
+    buffer with 64 sentinel words on each side; raises if a sentinel
+    changed, returns the [C, N] view.  ``offset`` 1 leaves the output
+    unaligned, which takes the kernel's one-word store path."""
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import kernels
+
+    C, N, pad, sentinel = cand.shape[0], kp.shape[0], 64, -7
+    buf = torch.full((C * N + 2 * pad,), sentinel, dtype=torch.int32, device=cand.device)
+    out = buf[pad + offset : pad + offset + C * N]
+    kernels.HAMMING_MATRIX.launch(cand, kp, C, N, out)
+    torch.cuda.synchronize()
+    if not (bool((buf[: pad + offset] == sentinel).all()) and bool((buf[pad + offset + C * N :] == sentinel).all())):
+        raise AssertionError(f"K3 hamming_matrix wrote outside its [{C}, {N}] output (offset {offset})")
+    return out.view(C, N)
+
+
 def k3_phase(dev):
     """Compare K3 with its plain version, then drive its entry point once
     with the counts reset; return a function that times K3 and returns its
@@ -353,20 +402,30 @@ def k3_phase(dev):
     def words(n):
         return torch.from_numpy(rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
 
-    cases = {(c, n): (words(c), words(n)) for c, n in ((65536, 512), (16384, 500), (16383, 37), (0, 500))}
+    shapes = ((65536, 512), (16384, 500), (16383, 500), (16383, 37), (1000, 1), (1000, 7), (1000, 9), (1, 512),
+              (16384, 3000), (0, 500), (1000, 0))
+    cases = {f"{c}x{n}": (words(c), words(n)) for c, n in shapes}
+    tie_kp = words(500)
+    tie_kp[250:] = tie_kp[:250]  # every keypoint twice
+    cases["ties 4096x500"] = (tie_kp[torch.arange(4096, device=dev) % 500].contiguous(), tie_kp)  # distance 0 hits
     err = {}
-    for (c, n), (cand, kp) in cases.items():
+    for name, (cand, kp) in cases.items():
+        c, n = cand.shape[0], kp.shape[0]
         got = matching.hamming_matrix_packed(cand, kp)
         want = matching.hamming_matrix_reference(cand, kp)
         torch.cuda.synchronize()
         if got.shape != (c, n) or not torch.equal(got, want):
-            raise AssertionError(f"K3 hamming_matrix differs from its plain version at C={c}, N={n}")
+            raise AssertionError(f"K3 hamming_matrix differs from its plain version at {name}")
         err[c, n] = float((got - want).abs().max()) if got.numel() else 0.0
-    print("K3 hamming_matrix: exact at C x N = 65536x512, 16384x500, 16383x37 and 0x500")
+        if got.numel():  # nothing written outside [C, N], on the aligned and the one-word store path
+            for offset in (0, 1):
+                if not torch.equal(_guarded_k3(cand, kp, offset), want):
+                    raise AssertionError(f"K3 hamming_matrix differs from its plain version at {name}, offset {offset}")
+    print(f"K3 hamming_matrix: exact at {', '.join(cases)}; no write outside [C, N] at output offsets 0 and 1 word")
     del got, want
 
     # the K3 path: its entry point at the parity bench's shape
-    cand, kp = cases[65536, 512]
+    cand, kp = cases["65536x512"]
     kernels.reset_counts()
     out = matching.hamming_matrix_packed(cand, kp)
     torch.cuda.synchronize()
@@ -379,8 +438,9 @@ def k3_phase(dev):
     def timings():
         out = []
         for c, n in ((65536, 512), (16384, 500)):
-            cand, kp = cases[c, n]
+            cand, kp = cases[f"{c}x{n}"]
             n_pad = n + (-n) % 8
+            dst = torch.empty((c, n), dtype=torch.int32, device=dev)
             out.append(_timing(
                 kernels.HAMMING_MATRIX, f"C={c} N={n}", max_abs_err=err[c, n],
                 wrapper=_median_ms(lambda: matching.hamming_matrix_packed(cand, kp)),
@@ -390,6 +450,8 @@ def k3_phase(dev):
                 library=lambda cand=cand, kp=kp, c=c, n=n, n_pad=n_pad: _int_mm_ms(
                     cand, kp, n_pad, check=matching.hamming_matrix_reference(cand, kp),
                     label=f"torch._int_mm [{c}, 256] x [256, {n_pad}], the dot of (256 - dot) / 2"),
+                # what this card writes: a store-only pass over the same output, never called by the port
+                store_floor=lambda dst=dst: _device_ms(lambda: dst.fill_(0), None),
                 launches=launches["hamming_matrix"],
             ))
         return out
@@ -589,8 +651,10 @@ def main() -> int:
     # first, then the kernels' CUDA events, then their profiler timings
     if "--profile" in sys.argv[1:]:
         profile_phase(frames, full_cfg, dev)
+    print(f"SM clock, max before the kernel timings: {sm_clocks()}")
     pending = time_k1_k2() + time_k3()
     entries = [_entry(t) for t in pending][:3]  # K3 at 65536x512 in the JSON line, 16384x500 printed
+    print(f"SM clock, max after the kernel timings: {sm_clocks()}")
 
     for e in entries:  # K3's `launches` is its own path's; per frame, every kernel's is full VO's
         e.setdefault("launches", counts[e["name"]])

@@ -46,19 +46,51 @@
 // memory: the launcher opts in to the larger dynamic size.
 //
 // K3 `hamming_matrix`: the full distance matrix out[c, n] from a row-major
-// pool.  Replaces the Pallas TPU kernel `_kernel` / `_hamming_packed_pallas`
-// / `hamming_matrix_packed` (rgbd_visualodometry_tpu/ops/pallas_match.py:
-// 64,94,116), whose (256 - dot) / 2 it equals.  Inputs: cand [C, 8] and
-// kp [N, 8]; output [C, N] int32, no mask, no reduction.
-// What bounds it on an H100: at C = 65536, N = 512 the 128 MiB of output
-// (~40 us at 3.35 TB/s) and 268 M popcounts (~70 us at 16 per clock per SM).
-// Design: lanes of a warp take consecutive n of one candidate row, so each
-// row's stores are coalesced (one thread per candidate would store with a
-// stride of N).  The distance is xor + popcount, `hamming256`.  A thread
-// keeps its keypoint's 8 words in registers; a block of kMatThreads
-// keypoints stages kMatRows candidate rows (1 KB) in shared memory, read as
-// broadcasts, and writes kMatRows rows.
-// Ragged C and N are masked.
+// pool.  Replaces the Pallas TPU kernel `_kernel`
+// (rgbd_visualodometry_tpu/ops/pallas_match.py:64), launched at :104 by
+// `_hamming_packed_pallas` and reached through `hamming_matrix_packed`
+// (:116), whose (256 - dot) / 2 it equals bit for bit.  Inputs: cand [C, 8]
+// and kp [N, 8]; output [C, N] int32, no mask, no reduction.
+// What bounds it on an H100: the bytes, 4 C N written plus 32 (C + N) read:
+// at C = 65536, N = 512 the 128 MiB of output, ~40 us at 3.35 TB/s.  The
+// products, counted as 2 C N 256 int8 operations, take ~8.7 us at 1,979
+// TOP/s.
+// The first port (one thread per keypoint, xor + `__popc` over 8 words
+// against staged candidate rows) sent all C N 8 words through the popcount
+// pipe - 268 M POPC at that shape, ~70 us at 16 per clock per SM - so it was
+// bound by that issue rate, not by its stores.
+// Design: the products on single-bit tensor cores as in K2 (the same
+// fragments, keypoint staging and distance popc(a) + popc(b) - 2 popc(a & b),
+// here with no mask floor), so only the stores are left, and a store path
+// built for them.  A persistent grid of 256-thread blocks (at most two per
+// SM, each with the same number of tiles) walks output tiles of 16
+// candidate rows x one chunk of at most kMatCols keypoints, chunk-major, so
+// a block stages a chunk's keypoints (32 B each plus their popcount) once
+// and keeps them while it walks the rows.  Per tile each warp holds the A
+// fragment of the 16 rows in registers (their popcounts summed over the
+// quad by two shuffles; the loads issued one tile ahead, so their latency
+// passes while the previous tile is stored) and runs one `mma` per
+// 8-keypoint tile over every eighth tile of the chunk.  Its distances go to
+// a [16, pitch] int32 tile in shared memory, whose pitch = 8 (mod 32) words
+// puts the eight rows of an int2 fragment store on distinct banks (two
+// wavefronts per store, the least).  The block then writes the tile row by
+// row: 16-byte vector loads of the shared tile and 16-byte streaming stores
+// (`st.global.cs`: the output is never re-read and is larger than the 50 MB
+// L2), consecutive threads on consecutive addresses, one row's chunks after
+// the next.  A block's first row starts at c0 N with c0 a multiple of 16, so
+// when N is a multiple of 4 (and the output 16-byte aligned) every row is
+// 16-byte aligned; otherwise (N = 37: 148-byte rows) the same walk stores
+// one int32 per thread.  Two blocks share an SM, so one block's stores
+// overlap the other's `mma`s.  Padded keypoint columns and rows past C are
+// computed in shared memory but never stored.
+// Measured on the card (tools/k3_variants.py): the `mma`s cost nothing
+// measurable (without them it is no faster), the compute alone takes under
+// half of the store-only time, and what is left is how the two overlap.
+// Plain stores instead of `.cs` are ~10% slower at 65536 x 512.  Up to four
+// blocks per SM or four warps per block were slower at one of the two
+// shapes.  Bulk copies (`cp.async.bulk`, double-buffered) left the threads
+// free of the stores but needed two barriers and a proxy fence per tile and
+// more shared memory, and were slower at 16384 x 500.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,14 +102,11 @@ constexpr int kRowGroups = 8;  // warps across candidates, 16 rows each
 constexpr int kSplits = 2;  // warps across keypoint tiles, merged at the end
 constexpr int kNnThreads = 32 * kRowGroups * kSplits;
 constexpr int kNnRows = 16 * kRowGroups;
-constexpr int kMatThreads = 128;
-constexpr int kMatRows = 32;
-
-// popcount(a ^ b) over 256 bits: a in two 16-byte registers, b as 8 words
-__device__ __forceinline__ int hamming256(uint4 lo, uint4 hi, const uint32_t* b) {
-  return __popc(lo.x ^ b[0]) + __popc(lo.y ^ b[1]) + __popc(lo.z ^ b[2]) + __popc(lo.w ^ b[3]) +
-         __popc(hi.x ^ b[4]) + __popc(hi.y ^ b[5]) + __popc(hi.z ^ b[6]) + __popc(hi.w ^ b[7]);
-}
+constexpr int kMatSplits = 8;  // warps of a K3 block: each takes every 8th keypoint tile
+constexpr int kMatThreads = 32 * kMatSplits;
+constexpr int kMatRows = 16;  // candidate rows of a K3 tile: one m16 A fragment
+constexpr int kMatCols = 512;  // keypoints of a K3 column chunk, staged in shared memory
+constexpr int kMatBlocksPerSm = 2;  // resident K3 blocks per SM, at most
 
 // acc += popc(A & B) over 256 bits: a [16 x 256] x [256 x 8] single-bit product
 __device__ __forceinline__ void mma_b1_and_popc(int (&acc)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -204,24 +233,124 @@ hamming_nn_kernel(const uint32_t* __restrict__ cand, const uint32_t* __restrict_
   }
 }
 
-// grid (ceil(C / kMatRows), ceil(N / kMatThreads)): block x takes candidate
-// rows [kMatRows * x, +kMatRows), block y keypoints [kMatThreads * y, +kMatThreads)
+// st.global.cs: evict-first, the output is never read again by the kernel
+template <typename T>
+__device__ __forceinline__ void store_streaming(T* p, T v) {
+  __stcs(p, v);
+}
+
+// A fragment of candidate rows c0 + g and c0 + g + 8: words t and t + 4 (zero past C)
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint32_t* cand, int C, int c0, int g,
+                                       int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = c0 + 8 * h + g;
+    const uint32_t* pr = cand + 8 * static_cast<size_t>(r);
+    a[h] = r < C ? pr[t] : 0u;
+    a[h + 2] = r < C ? pr[t + 4] : 0u;
+  }
+}
+
+// Write rows [0, rows) x columns [0, nc) of the shared tile (row pitch
+// `pitch` words) to dst (row stride N words) with streaming stores of T:
+// int4 where nc and every row start are 16-byte aligned, else int.  The
+// block's threads walk the tile's T-sized pieces in row-major order.
+template <typename T>
+__device__ __forceinline__ void store_tile(const int* tile, int pitch, int rows, int nc, int N,
+                                           int32_t* dst) {
+  constexpr int kWords = sizeof(T) / sizeof(int);
+  const int per_row = nc / kWords;
+  const int dr = kMatThreads / per_row, dq = kMatThreads % per_row;
+  int r = threadIdx.x / per_row, q = threadIdx.x % per_row;
+  while (r < rows) {
+    store_streaming(reinterpret_cast<T*>(dst + static_cast<size_t>(r) * N) + q,
+                    reinterpret_cast<const T*>(tile + r * pitch)[q]);
+    r += dr;
+    q += dq;
+    if (q >= per_row) {
+      q -= per_row;
+      ++r;
+    }
+  }
+}
+
+// Persistent: block b takes tiles b, b + gridDim.x, ... of the chunk-major
+// order (chunk of kMatCols keypoints, then 16-row tile).  Shared memory:
+// skp [kc_pad][8] the chunk's keypoints (halves swapped where (n >> 2) & 1),
+// spb [kc_pad] their popcounts, sout [kMatRows][pitch] the tile's distances.
 __global__ void __launch_bounds__(kMatThreads)
 hamming_matrix_kernel(const uint32_t* __restrict__ cand, const uint32_t* __restrict__ kp, int C,
-                      int N, int32_t* __restrict__ out) {
-  __shared__ uint32_t scand[kMatRows * 8];
-  const size_t c0 = static_cast<size_t>(blockIdx.x) * kMatRows;
-  const int rows = min(kMatRows, C - static_cast<int>(c0));
-  for (int i = threadIdx.x; i < rows * 8; i += blockDim.x) scand[i] = cand[c0 * 8 + i];
-  __syncthreads();
+                      int N, int kc_pad, int pitch, int vec, int32_t* __restrict__ out) {
+  extern __shared__ uint4 smem4[];
+  uint4* skp = smem4;
+  int* spb = reinterpret_cast<int*>(skp + 2 * kc_pad);
+  int* sout = spb + kc_pad;  // 16-byte aligned: kc_pad is a multiple of 8
 
-  const int n = blockIdx.y * kMatThreads + threadIdx.x;
-  if (n >= N) return;
-  const uint4* k = reinterpret_cast<const uint4*>(kp + 8 * static_cast<size_t>(n));
-  const uint4 lo = k[0];
-  const uint4 hi = k[1];
-  int32_t* o = out + c0 * N + n;
-  for (int r = 0; r < rows; ++r) o[static_cast<size_t>(r) * N] = hamming256(lo, hi, scand + 8 * r);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int warp = tid >> 5;
+  const int row_tiles = (C + kMatRows - 1) / kMatRows;
+  const int tiles = row_tiles * ((N + kMatCols - 1) / kMatCols);
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(skp);
+  const int sw = ((g >> 2) & 1) << 2;  // a tile's 8 keypoints start at a multiple of 8
+  const uint4 z = make_uint4(0, 0, 0, 0);
+  int staged = -1;
+  uint32_t a[4];  // the A fragment of the block's next tile, loaded one tile ahead
+  const int stride = gridDim.x;
+  if (static_cast<int>(blockIdx.x) < tiles) load_a(a, cand, C, blockIdx.x % row_tiles * kMatRows, g, t);
+
+  for (int tile = blockIdx.x; tile < tiles; tile += stride) {
+    const int chunk = tile / row_tiles;
+    const int c0 = (tile - chunk * row_tiles) * kMatRows;
+    const int n0 = chunk * kMatCols;
+    const int nc = min(kMatCols, N - n0);
+    const int nc_pad = (nc + 7) & ~7;
+    if (chunk != staged) {  // after the last tile's closing barrier: no warp reads skp now
+#pragma unroll 2
+      for (int i = tid; i < nc_pad; i += kMatThreads) {  // at most 2 per thread: loads batched
+        const int n = n0 + i;
+        const uint4* k = reinterpret_cast<const uint4*>(kp) + 2 * static_cast<size_t>(n);
+        const uint4 lo = n < N ? k[0] : z, hi = n < N ? k[1] : z;
+        const int swap = (i >> 2) & 1;
+        skp[2 * i + swap] = lo;
+        skp[2 * i + 1 - swap] = hi;
+        spb[i] = popc256(lo, hi);
+      }
+      staged = chunk;
+      __syncthreads();
+    }
+
+    int pa0 = __popc(a[0]) + __popc(a[2]);  // popcounts of rows g and g + 8, summed over the quad
+    int pa1 = __popc(a[1]) + __popc(a[3]);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      pa0 += __shfl_xor_sync(0xffffffffu, pa0, off);
+      pa1 += __shfl_xor_sync(0xffffffffu, pa1, off);
+    }
+    int* o0 = sout + g * pitch + 2 * t;  // row g, columns 2t, 2t + 1 of each 8-keypoint tile
+    int* o1 = o0 + 8 * pitch;  // row g + 8
+#pragma unroll 4
+    for (int j = 8 * warp; j < nc_pad; j += 8 * kMatSplits) {
+      int acc[4] = {0, 0, 0, 0};
+      mma_b1_and_popc(acc, a, words[8 * (j + g) + (t ^ sw)], words[8 * (j + g) + ((t + 4) ^ sw)]);
+      const int2 pb = *reinterpret_cast<const int2*>(spb + j + 2 * t);
+      *reinterpret_cast<int2*>(o0 + j) = make_int2(pa0 + pb.x - 2 * acc[0], pa0 + pb.y - 2 * acc[1]);
+      *reinterpret_cast<int2*>(o1 + j) = make_int2(pa1 + pb.x - 2 * acc[2], pa1 + pb.y - 2 * acc[3]);
+    }
+    // the next tile's A loads run while this tile is stored
+    if (tile + stride < tiles) load_a(a, cand, C, (tile + stride) % row_tiles * kMatRows, g, t);
+    __syncthreads();
+
+    const int rows = min(kMatRows, C - c0);
+    int32_t* dst = out + static_cast<size_t>(c0) * N + n0;
+    if (vec)
+      store_tile<int4>(sout, pitch, rows, nc, N, dst);
+    else
+      store_tile<int>(sout, pitch, rows, nc, N, dst);
+    __syncthreads();  // sout (and skp, if the next tile restages) free again
+  }
 }
 
 }  // namespace
@@ -248,10 +377,32 @@ extern "C" int rgbdvo_hamming_nn(const void* cand, const void* kp, const void* k
 extern "C" int rgbdvo_hamming_matrix(const void* cand, const void* kp, int C, int N, void* out,
                                      void* stream) {
   if (C == 0 || N == 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((C + kMatRows - 1) / kMatRows, (N + kMatThreads - 1) / kMatThreads);
-  hamming_matrix_kernel<<<grid, kMatThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(cand), static_cast<const uint32_t*>(kp), C, N,
-      static_cast<int32_t*>(out));
+  const int kc_pad = (min(N, kMatCols) + 7) / 8 * 8;  // keypoints of the widest chunk, whole tiles
+  const int pitch = kc_pad + ((8 - kc_pad) & 31);  // = 8 (mod 32) words
+  const size_t smem = static_cast<size_t>(kc_pad) * (2 * sizeof(uint4) + sizeof(int)) +
+                      static_cast<size_t>(kMatRows) * pitch * sizeof(int);
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {  // per device, so made on every such launch
+    err = cudaFuncSetAttribute(hamming_matrix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hamming_matrix_kernel,
+                                                           kMatThreads, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  // every resident block the same number of tiles
+  const long long tiles =
+      static_cast<long long>((C + kMatRows - 1) / kMatRows) * ((N + kMatCols - 1) / kMatCols);
+  const long long slots = static_cast<long long>(min(max(per_sm, 1), kMatBlocksPerSm)) * max(sms, 1);
+  const long long per_block = (tiles + slots - 1) / slots;
+  const int blocks = static_cast<int>((tiles + per_block - 1) / per_block);
+  const int vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  hamming_matrix_kernel<<<blocks, kMatThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(cand), static_cast<const uint32_t*>(kp), C, N, kc_pad, pitch,
+      vec, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,7 +12,9 @@ both map to this one path.  The adaptive distance gate
 
 :func:`hamming_matrix_packed`, the full ``[C, N]`` distance matrix of
 ``rgbd_visualodometry_tpu/ops/pallas_match.py``, is kernel K3 (same
-source) on CUDA and :func:`hamming_matrix_reference` on the CPU.
+source: K2's single-bit tensor-core products, the distances staged in
+shared memory and written with 16-byte streaming stores) on CUDA and
+:func:`hamming_matrix_reference` on the CPU.
 """
 
 from __future__ import annotations

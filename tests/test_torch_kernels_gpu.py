@@ -100,21 +100,54 @@ def test_hamming_nn_kernel_exact(cuda, case):
     assert torch.equal(got.kp_index, want.kp_index) and torch.equal(got.distance, want.distance)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("C,N", [(65536, 512), (16384, 500), (16383, 37), (0, 500)])
-def test_hamming_matrix_kernel_exact(cuda, C, N):
-    """K3 at the shapes of chip_smoke.py's K3 phase: the parity bench's, the
-    main path's, a ragged C and N, and an empty pool."""
+def _k3_case(C, N, ties=False):
     rng = np.random.default_rng(C + N)
-    cand, kp = (torch.from_numpy(rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32).view(np.int32)).to(cuda)
-                for n in (C, N))
+    words = lambda n: rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)  # noqa: E731
+    cand, kp = words(C), words(N)
+    if ties:  # every keypoint twice, every candidate equal to a keypoint
+        kp[N // 2:] = kp[: N - N // 2]
+        cand = kp[np.arange(C) % N]
+    return [torch.from_numpy(np.ascontiguousarray(a).view(np.int32)) for a in (cand, kp)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,N,ties", [
+    (65536, 512, False), (16384, 500, False), (16383, 500, False), (16383, 37, False), (0, 500, False),
+    (1000, 1, False), (1000, 7, False), (1000, 9, False), (1, 512, False), (16384, 3000, False),
+    (1000, 0, False), (4096, 500, True),
+])
+def test_hamming_matrix_kernel_exact(cuda, C, N, ties):
+    """K3 at the shapes of chip_smoke.py's K3 phase: the parity bench's, the
+    main path's, ragged C, rows that are not 16-byte aligned (N = 1, 7, 9,
+    37), C = 1, more keypoints than one shared-memory chunk, empty C and N,
+    and a tie-heavy pool."""
+    cand, kp = (a.to(cuda) for a in _k3_case(C, N, ties))
     before = kernels.HAMMING_MATRIX.launches
     got = matching.hamming_matrix_packed(cand, kp)
     want = matching.hamming_matrix_reference(cand, kp)
     torch.cuda.synchronize()
-    assert kernels.HAMMING_MATRIX.launches == before + (1 if C else 0)
+    assert kernels.HAMMING_MATRIX.launches == before + (1 if C and N else 0)
     assert got.shape == (C, N) and got.dtype == torch.int32
     assert torch.equal(got, want)
+    if ties:
+        assert (got[torch.arange(C), torch.arange(C) % N] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("C,N", [(16383, 500), (1000, 37), (1, 9), (100, 3000)])
+def test_hamming_matrix_kernel_writes_only_its_output(cuda, C, N, offset):
+    """K3's C entry on a view into a sentinel-filled buffer: every word
+    outside [C, N] is left as it was.  At offset 1 word the output is not
+    16-byte aligned, which takes the one-word store path."""
+    cand, kp = (a.to(cuda) for a in _k3_case(C, N))
+    pad = 64
+    buf = torch.full((C * N + 2 * pad,), -7, dtype=torch.int32, device=cuda)
+    out = buf[pad + offset : pad + offset + C * N]
+    kernels.HAMMING_MATRIX.launch(cand, kp, C, N, out)
+    torch.cuda.synchronize()
+    assert (buf[: pad + offset] == -7).all() and (buf[pad + offset + C * N :] == -7).all()
+    assert torch.equal(out.view(C, N), matching.hamming_matrix_reference(cand, kp))
 
 
 @pytest.mark.gpu

@@ -151,10 +151,17 @@ def _pallas_kernel_interpret(cand, kp_bip, tile):
     )(cand, kp_perm)
 
 
-@pytest.mark.parametrize("case", ["random", "ties", "near", "ragged", "empty"])
+@pytest.mark.parametrize("case", ["random", "ties", "near", "ragged", "empty", "N=1", "N=9", "N=37", "C=1"])
 def test_hamming_matrix_reference_exact(case):
+    """Also at the shapes that break a tiled store path on the card: rows of
+    1, 9 and 37 keypoints (not 16-byte aligned) and a single candidate."""
+    cand, kp, _ = _nn_cases()["random"]
     if case == "empty":
-        cand, kp = np.zeros((0, 8), np.uint32), _nn_cases()["random"][1]
+        cand = np.zeros((0, 8), np.uint32)
+    elif case == "C=1":
+        cand = cand[:1]
+    elif case.startswith("N="):
+        kp = kp[: int(case[2:])]
     else:
         cand, kp, _ = _nn_cases()[case]
     got = asnp(tmatch.hamming_matrix_reference(t(cand.view(np.int32)), t(kp.view(np.int32))))

@@ -20,7 +20,11 @@ worker imports the port and ``chip_smoke.py`` of its own checkout and runs:
    each checked equal to its plain version, then timed: device time per
    call (torch.profiler self device time of the kernels whose name holds
    ``fast_nms`` / ``hamming_nn``) and wrapper-inclusive time (CUDA events
-   around one call), both with the helpers of head's ``chip_smoke.py``.
+   around one call), both with the helpers of head's ``chip_smoke.py``;
+3. K3 ``hamming_matrix_packed`` at C x N = 65536 x 512 (the parity bench's
+   shape) and 16384 x 500 (the main path's pool) on seeded inputs, checked
+   equal to its plain version, then timed the same way (kernels whose name
+   holds ``hamming_matrix``).
 
 Prints one JSON line per worker, then the median of each number per
 checkout, and writes all of it to ``--out`` if given.  Needs a CUDA device.
@@ -114,12 +118,21 @@ def worker(tree: str) -> dict:
         N=kp.shape[0], C=cand.shape[0], launches_per_call=per_call["hamming_nn"],
         wrapper_ms=helpers._median_ms(k2), device_ms=helpers._device_ms(k2, "hamming_nn"),
     )
+    for key, (c, n) in (("k3", (65536, 512)), ("k3_main", (cfg.max_mappoints, cfg.number_of_features))):
+        cand, kp = words(c), words(n)
+
+        def k3(cand=cand, kp=kp):
+            return matching.hamming_matrix_packed(cand, kp)
+
+        if not torch.equal(k3(), matching.hamming_matrix_reference(cand, kp)):
+            raise AssertionError(f"{tree}: K3 differs from its plain version at C={c}, N={n}")
+        out[key] = dict(C=c, N=n, wrapper_ms=helpers._median_ms(k3), device_ms=helpers._device_ms(k3, "hamming_matrix"))
     return out
 
 
 # (section, key) of every number summarised per checkout
 METRICS = [(s, k) for s in ("slice", "full_vo") for k in ("ms_frame", "p90_ms", "ba_ms")] + [
-    (s, k) for s in ("k1", "k2") for k in ("device_ms", "wrapper_ms")
+    (s, k) for s in ("k1", "k2", "k3", "k3_main") for k in ("device_ms", "wrapper_ms")
 ]
 
 
