@@ -21,7 +21,7 @@
    each nonempty case also through K3's C entry into a sentinel-guarded
    buffer, at output offsets of 0 and 1 word (the vector and the one-word
    store paths), which fails on any write outside [C, N].  Timed after
-   steps 4-6, at the main path's shapes: each kernel's wrapper-inclusive
+   steps 4-7, at the main path's shapes: each kernel's wrapper-inclusive
    time (CUDA events around one call) and its plain version's time, then
    its device time (torch.profiler), its bound (the larger of its bytes at
    3.35 TB/s and its operations at the published peak of their type) and,
@@ -40,15 +40,28 @@
 5. Full-VO phase: the same over ``bench.single_stream_cfg(VOConfig())``
    unchanged - local BA after every keyframe - with the same checks, and
    BA must have run once for every record that asked for it.
-6. With ``--profile``: a breakdown of one full-VO frame's time by stage,
-   ``ba_step`` included, and the device busy share (torch.profiler) - not
-   part of the default run.
-7. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
+6. Multistream phase: the bench's headline "72-stream batched full VO",
+   ``parallel.MultiStreamVO`` over ``bench.multistream_cfg(VOConfig(),
+   full_vo=True)`` (the full-VO config with packed matching and BA at most
+   every 15 steps): 72 streams, each its own 640x480 sequence (seed ``s``,
+   rendered in a process pool), 12 warm-up and 12 timed batch steps, the
+   batches staged on the card first.  Every stream must track every frame
+   with ATE < 3 cm, a masked BA must have run, and K1 and K2 must have
+   launched exactly once per batch step.  Then K1 (72 streams x 8 levels)
+   and K2 (72 x 16384 x 500, one stream all masked) are compared with their
+   plain versions per stream, and timed after the other kernels, with
+   ``torch.bmm`` in fp16 as K2's library yardstick.
+7. With ``--profile``: a breakdown of one full-VO frame's time and of one
+   multistream batch step's by stage, ``ba_step`` included, and the device
+   busy share (torch.profiler) - not part of the default run.
+8. Prints the kernels' JSON line, then ``{"ok": true, "device": ...}`` as the
    last line.  In it ``ms`` is the wrapper-inclusive time and ``device_ms``
    the device time; ``launches_per_frame`` is each kernel's count in the
    full-VO run over its frames, and ``launches`` that count too, except for
    K3, whose path is step 3; ``max_abs_err`` is measured on the compared
-   outputs at the main path's shapes.
+   outputs at the main path's shapes.  K1 and K2 also carry a
+   ``multistream`` entry: the same keys at the batched shapes, with
+   ``launches`` from step 6.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 repository beside this file, it exits nonzero before printing a result.
@@ -70,6 +83,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 60
 WARMUP_FRAMES = 10
 ATE_LIMIT_M = 0.03
+MS_STREAMS = 72  # bench.FULL_VO_STREAMS
+MS_WARMUP = 12  # bench.WARMUP_FRAMES
+MS_MEASURED = 12
 
 
 def sass_summary(lib) -> dict:
@@ -111,6 +127,13 @@ def slice_config():
     return full_vo_config().replace(packed_matching=True, enable_local_optimization=False)
 
 
+def multistream_config():
+    """``bench.multistream_cfg(VOConfig(), full_vo=True)``, the config of the
+    repo's headline "72-stream batched full VO": :func:`full_vo_config` with
+    packed matching and one batched BA solve at most every 15 steps."""
+    return full_vo_config().replace(packed_matching=True, ba_min_frame_gap=14)
+
+
 def make_frames(cfg, n: int, seed: int = 0):
     """The frames of ``bench._make_frames``: the synthetic textured plane,
     a constant-velocity drift with yaw."""
@@ -122,6 +145,20 @@ def make_frames(cfg, n: int, seed: int = 0):
         seed=seed,
     )
     return synthetic.generate_sequence(n, scene=scene, step_t=(0.012, 0.002, 0.0), step_r=(0.0, 0.0, 0.003))
+
+
+def _render_stream(args):
+    """One stream's sequence (``bench._make_frames`` with ``seed``), run in
+    a worker process: ``(rgb [T, H, W, 3], depth [T, H, W], timestamps [T],
+    ground-truth camera centres [T, 3])``."""
+    import numpy as np
+
+    from rgbd_visualodometry_tpu_torch.io.synthetic import _pose_inverse as pose_inverse
+
+    cfg, n, seed = args
+    frames = make_frames(cfg, n, seed=seed)
+    return (np.stack([f.rgb for f in frames]), np.stack([f.depth for f in frames]),
+            np.array([f.timestamp for f in frames]), np.stack([pose_inverse(f.T_c_w)[4:7] for f in frames]))
 
 
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
@@ -541,20 +578,182 @@ def check_run(name, frames, cfg, run) -> dict:
     return counts
 
 
-def profile_phase(frames, cfg, dev, warm: int = 5, measured: int = 10) -> None:
-    """``--profile``: where one frame's time goes.  Stage times come from
-    wrapping the frontend's stages and ``backend.ba_step`` with synchronised
-    host timers; the device busy share and the top kernels from
-    ``torch.profiler`` over the same frames (timers off)."""
+def _render_streams(cfg, n_streams: int, n_frames: int):
+    """Every stream's own sequence (seed ``s``, as ``bench.py`` renders
+    them), rendered in a pool of worker processes."""
+    import multiprocessing
+
+    workers = max(1, min(n_streams, os.cpu_count() or 1))
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        return pool.map(_render_stream, [(cfg, n_frames, s) for s in range(n_streams)])
+
+
+def multistream_phase(cfg, dev, profile_steps: int = 0):
+    """The bench's headline workload on the port: ``MultiStreamVO`` with
+    ``MS_STREAMS`` streams of 640x480 full VO (:func:`multistream_config`),
+    each its own sequence, ``MS_WARMUP`` steps then ``MS_MEASURED`` timed
+    ones, every batch staged on the card first.  Checks that every stream
+    tracks every frame with ATE < 3 cm, that a masked BA dispatch ran and
+    that K1 and K2 launched once per batch step.  Returns a function that
+    times K1 and K2 at the batched shapes (after the other timings) and
+    returns their entries for the JSON line, and one that runs
+    :func:`profile_phase` over ``2 * profile_steps`` more batch steps
+    (``--profile``; None without)."""
+    import numpy as np
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import kernels
+    from rgbd_visualodometry_tpu_torch.evaltools import ate_rmse
+    from rgbd_visualodometry_tpu_torch.ops import fast, image as im, matching
+    from rgbd_visualodometry_tpu_torch.parallel import MultiStreamVO
+    from rgbd_visualodometry_tpu_torch.pipeline.frontend import StepOutput
+
+    S, n = MS_STREAMS, MS_WARMUP + MS_MEASURED
+    t0 = time.perf_counter()
+    seqs = _render_streams(cfg, S, n + 2 * profile_steps)
+    print(f"multistream: rendered {S} sequences x {len(seqs[0][0])} frames {cfg.image_width}x{cfg.image_height} "
+          f"(seeds 0-{S - 1}) in {time.perf_counter() - t0:.1f} s")
+
+    vo = MultiStreamVO(cfg, S, device=dev)
+    batches = [vo.put_batch(np.stack([q[0][i] for q in seqs]), np.stack([q[1][i] for q in seqs]),
+                            np.array([q[2][i] for q in seqs])) for i in range(n + 2 * profile_steps)]
+    ba_s = []
+    masked_ba = vo._ba
+
+    def timed_ba(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = masked_ba(*a)
+        torch.cuda.synchronize()
+        ba_s.append(time.perf_counter() - t)
+        return out
+
+    vo._ba = timed_ba
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    outs, step_s = [], []
+    for fb in batches[:n]:
+        t = time.perf_counter()
+        outs.append(vo.step(fb).packed)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    vo.finish()
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    rec = torch.stack(outs).cpu().numpy()  # [steps, S, 32]
+    f = StepOutput._FIELDS
+    tracked = rec[..., f["tracked"]] > 0.5
+    ates = [ate_rmse(seqs[s][2][:n], rec[:, s, 11:14], seqs[s][2][:n], seqs[s][3][:n]) for s in range(S)]
+    measured = step_s[MS_WARMUP:]
+    print(f"multistream: {S} streams x {n} steps, {int(tracked.sum())}/{tracked.size} stream-frames tracked, "
+          f"ATE max {100 * max(ates):.3f} cm, mean {100 * statistics.mean(ates):.3f} cm; "
+          f"{S * len(measured) / sum(measured):.2f} stream-frames/s over steps {MS_WARMUP}-{n - 1}, "
+          f"{1e3 * statistics.median(measured):.2f} ms/step median (p90 "
+          f"{1e3 * sorted(measured)[int(0.9 * len(measured))]:.2f}), first step {1e3 * step_s[0]:.2f} ms")
+    print(f"multistream: {vo.ba_dispatches} masked BA dispatches ({int(rec[..., f['needs_ba']].sum())} "
+          f"stream-records asked for BA), BA {1e3 * statistics.median(ba_s):.2f} ms/dispatch median "
+          f"(all: {', '.join(f'{1e3 * x:.2f}' for x in ba_s)})" if ba_s else "multistream: no BA dispatch")
+    print(f"launches on the multistream path: {counts} over {n} batch steps")
+    if not tracked.all():
+        raise AssertionError(f"multistream: {int((~tracked).sum())} stream-frames not tracked")
+    if not all(math.isfinite(a) and a < ATE_LIMIT_M for a in ates):
+        raise AssertionError(f"multistream: ATE {max(ates)} m is not below {ATE_LIMIT_M} m")
+    if vo.ba_dispatches < 1 or len(ba_s) != vo.ba_dispatches:
+        raise AssertionError(f"multistream: {vo.ba_dispatches} BA dispatches")
+    if counts["fast_nms"] != n or counts["hamming_nn"] != n:
+        raise AssertionError(f"multistream: launches {counts}, expected fast_nms and hamming_nn {n} times each")
+    profile = None
+    if profile_steps:
+        def profile():
+            return profile_phase(f"multistream, {S} streams", "step", vo.step, batches[n : n + profile_steps],
+                          batches[n + profile_steps :], lambda: vo.ba_dispatches,
+                          extra=[(vo, "_update", "apply_updates (keyframe, map, DLT), vmapped")])
+    else:
+        del batches, vo
+    del outs
+
+    # K1 and K2 at the batched shapes: the frames' pyramids, and 72 pools of
+    # C words against 72 frames' N keypoints
+    gray = im.rgb_to_gray(torch.from_numpy(np.stack([q[0][0] for q in seqs])).to(dev))
+    levels = torch.func.vmap(lambda g: im.build_pyramid(g, cfg.level_pyramid, cfg.scale_factor))(gray)
+    got = fast.fast_nms_streams(levels)
+    want = torch.cat([torch.stack([fast.fast_nms_reference(g) for g in lv]).reshape(S, -1) for lv in levels], dim=1)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K1 fast_nms differs from its plain version on the batched pyramids")
+    k1_err = float((got - want).abs().max())
+    rng = np.random.default_rng(5)
+    N, C = cfg.number_of_features, cfg.max_mappoints
+    words = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.integers(0, 2**32, shape + (8,), dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+    cand, kp = words(S, C), words(S, N)
+    mask = torch.from_numpy(rng.random((S, N)) >= 0.1).to(dev)
+    mask[1] = False  # one stream with every keypoint masked
+    idx, dist = matching.hamming_nn_streams(cand, kp, mask)
+    k2_err = 0.0
+    for s in range(S):
+        ref = matching.hamming_nn_reference(cand[s], kp[s], mask[s])
+        if not (torch.equal(idx[s], ref.kp_index) and torch.equal(dist[s], ref.distance)):
+            raise AssertionError(f"K2 hamming_nn differs from its plain version on stream {s} of {S}")
+    print(f"K1 and K2 at {S} streams: exact per stream ({len(levels)} levels each; {S} pools {C}x{N}, "
+          "one with every keypoint masked)")
+
+    def timings():
+        px = sum(lv.numel() for lv in levels)
+        a16 = (matching.unpack_bits(cand) * 2 - 1).half()
+        b16 = torch.zeros((S, 512, 256), dtype=torch.float16, device=dev)
+        b16[:, :N] = (matching.unpack_bits(kp) * 2 - 1).half()
+        dot = torch.bmm(a16[:1], b16[:1].mT)
+        lib = (None, "torch.bmm fp16: its distances differ from the plain version")
+        if torch.equal(((256 - dot[0, :, :N]) / 2).int(), matching.hamming_matrix_reference(cand[0], kp[0])):
+            lib = (_device_ms(lambda: torch.bmm(a16, b16.mT), None),
+                   f"torch.bmm fp16 [{S}, {C}, 256] x [{S}, 256, 512], distance half only")
+        entries = {}
+        for name, what, fn, plain, bound, library, err in (
+            ("fast_nms", f"{S} streams x {len(levels)} levels, {px} px, one launch",
+             lambda: fast.fast_nms_streams(levels), lambda: [fast.fast_nms_reference(g) for lv in levels for g in lv],
+             _bound(8 * px, K1_OPS_PER_PIXEL * px, "fp32"), (None, "none"), k1_err),
+            ("hamming_nn", f"{S} streams x N={N} C={C}, one launch",
+             lambda: matching.hamming_nn_streams(cand, kp, mask),
+             lambda: [matching.hamming_nn_reference(cand[s], kp[s], mask[s]) for s in range(S)],
+             _bound(S * (32 * C + 33 * N + 8 * C), S * 2 * 256 * C * N, "int8 tensor-core"), lib, k2_err),
+        ):
+            kname = "fast_nms_pyramid_kernel" if name == "fast_nms" else "hamming_nn_kernel"
+            device_ms = _device_ms(fn, kname)
+            plain_ms = _median_ms(plain, iters=3, warmup=1)
+            bound_ms, bound_by, basis = bound
+            entries[name] = dict(
+                streams=S, launches=counts[name], launches_per_step=counts[name] / n, device_ms=device_ms,
+                ms=_median_ms(fn), plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bound_basis=basis,
+                share_of_bound=bound_ms / device_ms, library_ms=library[0], library_call=library[1], max_abs_err=err,
+            )
+            lib_txt = "none" if library[0] is None else f"{library[0]:.4f} ms device time ({library[1]})"
+            print(f"{name} at {what}: device {device_ms:.4f} ms (torch.profiler), wrapper-inclusive events "
+                  f"{entries[name]['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({basis}), {100 * bound_ms / device_ms:.1f}% of bound; library {lib_txt}")
+        return entries
+
+    return timings, profile
+
+
+def profile_phase(label, unit, step, timed, profiled, dispatches, extra=()):
+    """``--profile``: where one ``unit`` (a frame, or a batch step) of ``step``
+    goes.  Stage times come from wrapping the frontend's stages and
+    ``backend.ba_step`` with synchronised host timers over the items of
+    ``timed``; the device busy share and the top kernels from
+    ``torch.profiler`` over those of ``profiled`` (timers off), in the
+    function returned: the caller runs it after the kernel timings, whose
+    profiler windows lose events after a long trace.  ``dispatches()``
+    reads the BA dispatch count; ``extra`` holds more ``(object,
+    attribute, label)`` stages to time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from rgbd_visualodometry_tpu_torch import VisualOdometry
     from rgbd_visualodometry_tpu_torch.pipeline import backend, frontend
 
     stages: dict = {}
 
-    def timed(mod, name, label):
+    def wrap(mod, name, label):
         fn = getattr(mod, name)
 
         def wrapper(*a, **k):
@@ -568,47 +767,49 @@ def profile_phase(frames, cfg, dev, warm: int = 5, measured: int = 10) -> None:
         setattr(mod, name, wrapper)
         return mod, name, fn
 
-    vo = VisualOdometry(cfg, device=dev)
-    for f in frames[:warm]:
-        vo.process(f.rgb, f.depth, f.timestamp)
     patches = [
-        timed(frontend.orb, "extract", "orb.extract (pyramid, K1, Harris, BRIEF)"),
-        timed(frontend.mapstate, "tracking_map_mask", "tracking_map_mask"),
-        timed(frontend.matching, "nearest_keypoints_packed", "nearest_keypoints_packed (K2)"),
-        timed(frontend, "_match_and_estimate", "2 rounds: gate, compaction, RANSAC, LM"),
-        timed(frontend, "apply_updates", "apply_updates (keyframe, map, DLT)"),
-        timed(backend, "ba_step", "ba_step (local BA)"),
-    ]
-    todo = frames[warm : warm + measured]
-    ba_before = vo.ba_dispatches
+        wrap(frontend.orb, "extract", "orb.extract (pyramid, K1, Harris, BRIEF)"),
+        wrap(frontend.mapstate, "tracking_map_mask", "tracking_map_mask"),
+        wrap(frontend.matching, "nearest_keypoints_packed", "nearest_keypoints_packed (K2)"),
+        wrap(frontend, "_match_and_estimate", "2 rounds: gate, compaction, RANSAC, LM"),
+        wrap(frontend, "apply_updates", "apply_updates (keyframe, map, DLT)"),
+        wrap(backend, "ba_step", "ba_step (local BA)"),
+    ] + [wrap(*e) for e in extra]
+    ba_before = dispatches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for f in todo:
-        vo.process(f.rgb, f.depth, f.timestamp)
-    wall = (time.perf_counter() - t0) / len(todo)
+    for x in timed:
+        step(x)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / len(timed)
     for mod, name, fn in patches:
         setattr(mod, name, fn)
-    print(f"profile: {1e3 * wall:.2f} ms/frame with stage timers over frames {warm}-{warm + len(todo) - 1}, "
-          f"{vo.ba_dispatches - ba_before} BA dispatches")
-    for label, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
-        print(f"  {1e3 * sec / len(todo):9.2f} ms/frame  {100 * sec / len(todo) / wall:5.1f}%  {label}")
+    print(f"profile ({label}): {1e3 * wall:.2f} ms/{unit} with stage timers over {len(timed)} {unit}s, "
+          f"{dispatches() - ba_before} BA dispatches")
+    for what, sec in sorted(stages.items(), key=lambda kv: -kv[1]):
+        print(f"  {1e3 * sec / len(timed):9.2f} ms/{unit}  {100 * sec / len(timed) / wall:5.1f}%  {what}")
+    rest = wall - sum(stages.values()) / len(timed)
+    print(f"  {1e3 * rest:9.2f} ms/{unit}  {100 * rest / wall:5.1f}%  the rest (gray, depth lookup, FSM, host loop, record copy)")
 
-    todo = frames[warm + measured : warm + 2 * measured]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in todo:
-            vo.process(f.rgb, f.depth, f.timestamp)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / len(todo)
-    kernels_ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels_ev) / 1e6 / len(todo)
-    print(f"profiler: {1e3 * wall:.2f} ms/frame under the profiler, {len(kernels_ev) / len(todo):.0f} device "
-          f"kernels/frame, device busy {1e3 * busy:.2f} ms/frame ({100 * busy / wall:.1f}% of wall)")
-    averages = prof.key_averages()
-    for key in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(averages[0], key):
-            print(averages.table(sort_by=key, row_limit=12, max_name_column_width=60))
-            break
+    def trace():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for x in profiled:
+                step(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / len(profiled)
+        kernels_ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kernels_ev) / 1e6 / len(profiled)
+        print(f"profiler ({label}): {1e3 * wall:.2f} ms/{unit} under the profiler, "
+              f"{len(kernels_ev) / len(profiled):.0f} device kernels/{unit}, device busy {1e3 * busy:.2f} "
+              f"ms/{unit} ({100 * busy / wall:.1f}% of wall)")
+        averages = prof.key_averages()
+        for key in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(averages[0], key):
+                print(averages.table(sort_by=key, row_limit=12, max_name_column_width=60))
+                break
+
+    return trace
 
 
 def main() -> int:
@@ -647,18 +848,33 @@ def main() -> int:
     time_k3 = k3_phase(dev)
     check_run("slice (no BA)", frames, cfg, slice_phase(frames, cfg, dev))
     counts = check_run("full VO", frames, full_cfg, slice_phase(frames, full_cfg, dev))
+    profiling = "--profile" in sys.argv[1:]
+    time_batched, profile_batched = multistream_phase(multistream_config(), dev, profile_steps=3 if profiling else 0)
     # torch.profiler may slow the host's later launches: the stage timers
-    # first, then the kernels' CUDA events, then their profiler timings
-    if "--profile" in sys.argv[1:]:
-        profile_phase(frames, full_cfg, dev)
+    # first, then the kernels' CUDA events, then their profiler timings,
+    # then the profiler's traces of whole steps
+    traces = []
+    if profiling:
+        from rgbd_visualodometry_tpu_torch import VisualOdometry
+
+        vo = VisualOdometry(full_cfg, device=dev)
+        for f in frames[:5]:
+            vo.process(f.rgb, f.depth, f.timestamp)
+        traces = [profile_phase("full VO", "frame", lambda f: vo.process(f.rgb, f.depth, f.timestamp),
+                                frames[5:15], frames[15:25], lambda: vo.ba_dispatches), profile_batched()]
     print(f"SM clock, max before the kernel timings: {sm_clocks()}")
     pending = time_k1_k2() + time_k3()
     entries = [_entry(t) for t in pending][:3]  # K3 at 65536x512 in the JSON line, 16384x500 printed
+    batched = time_batched()
     print(f"SM clock, max after the kernel timings: {sm_clocks()}")
+    for trace in traces:
+        trace()
 
     for e in entries:  # K3's `launches` is its own path's; per frame, every kernel's is full VO's
         e.setdefault("launches", counts[e["name"]])
         e["launches_per_frame"] = counts[e["name"]] / len(frames)
+        if e["name"] in batched:  # K1 and K2 on the multistream path, at its shapes
+            e["multistream"] = batched[e["name"]]
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,5 +1,5 @@
 // K1: fused FAST-9 corner score + 3x3 non-maximum suppression over every
-// level of an image pyramid in one launch.
+// level of the image pyramids of S streams in one launch.
 //
 // Replaces the Pallas TPU kernel `_fast_nms_kernel` / `fast_score_nms`
 // (rgbd_visualodometry_tpu/ops/pallas_fast.py:30, launched at :91) and, on
@@ -24,10 +24,17 @@
 // costs more than either, and a small level alone fills few SMs.
 //
 // Design:
-// - One launch for the whole pyramid.  The launch takes a table of up to
-//   kMaxLevels (input, output, h, w) entries by value; block b finds its
-//   level as the last entry whose first tile is <= b and its tile inside the
-//   level, so the small levels' tiles run beside the large ones'.
+// - One launch for the whole pyramid of every stream.  The launch takes a
+//   table of up to kMaxLevels (input, output, h, w, input and output stream
+//   strides) entries by value; block (b, s) finds its level as the last
+//   entry whose first tile is <= b and its tile inside the level, and reads
+//   and writes stream s of it, so the small levels' tiles run beside the
+//   large ones' and every stream's beside the others'.  The streams share
+//   their level shapes, so the table stays at most kMaxLevels rows for any
+//   number of streams (72 streams x 8 levels: one launch of 72 x 347 blocks
+//   at 640x480).  The streams' pixels count like more levels: at 72 streams
+//   ~68 M pixels, ~12.6 G operations, ~0.19 ms at the fp32 peak, against
+//   ~547 MB of device memory (~0.16 ms).
 // - A block of 256 threads computes a 30x30 output tile.  It stages the
 //   tile plus a 4-pixel halo (3 for the Bresenham circle, 1 for the NMS
 //   window) in shared memory with edge-clamped indices - the same values as
@@ -65,6 +72,8 @@ constexpr int kLoadH = kTileH + 2 * kHalo;
 struct Level {
   const float* in;
   float* out;
+  long long in_stride;  // elements from one stream's level to the next's
+  long long out_stride;
   int h;
   int w;
   int tiles_x;
@@ -123,6 +132,8 @@ fast_nms_pyramid_kernel(const LevelTable table) {
 #pragma unroll
   for (int i = 1; i < kMaxLevels; ++i)
     if (i < table.n && static_cast<int>(blockIdx.x) >= table.lv[i].first_tile) lv = table.lv[i];
+  const float* in = lv.in + blockIdx.y * lv.in_stride;  // stream blockIdx.y
+  float* out = lv.out + blockIdx.y * lv.out_stride;
   const int t = blockIdx.x - lv.first_tile;
   const int ty0 = t / lv.tiles_x;
   const int x0 = (t - ty0 * lv.tiles_x) * kTileW;
@@ -134,7 +145,7 @@ fast_nms_pyramid_kernel(const LevelTable table) {
     const int lx = i - ly * kLoadW;
     const int gy = clampi(y0 + ly - kHalo, 0, lv.h - 1);
     const int gx = clampi(x0 + lx - kHalo, 0, lv.w - 1);
-    tile[ly][lx] = lv.in[gy * lv.w + gx];
+    tile[ly][lx] = in[gy * lv.w + gx];
   }
   __syncthreads();
 
@@ -161,32 +172,38 @@ fast_nms_pyramid_kernel(const LevelTable table) {
       for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
         for (int dx = 0; dx < 3; ++dx) m = fmaxf(m, score[oy + dy][ox + dx]);
-      lv.out[gy * lv.w + gx] = (c >= m) ? c : 0.0f;
+      out[gy * lv.w + gx] = (c >= m) ? c : 0.0f;
     }
   }
 }
 
 }  // namespace
 
-// levels: n rows of (input pointer, output pointer, h, w) as int64, on the
-// host; 1 <= n <= kMaxLevels, every h and w >= 1.  One launch.
-extern "C" int rgbdvo_fast_nms_pyramid(const int64_t* levels, int n, void* stream) {
-  if (n < 1 || n > kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+// levels: n rows of (input pointer, output pointer, h, w, input stream
+// stride, output stream stride) as int64, on the host, strides in floats;
+// 1 <= n <= kMaxLevels, every h and w >= 1; 1 <= streams <= 65535.  One
+// launch for every level of every stream.
+extern "C" int rgbdvo_fast_nms_pyramid(const int64_t* levels, int n, int streams, void* stream) {
+  if (n < 1 || n > kMaxLevels || streams < 1 || streams > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   LevelTable table{};
   int tiles = 0;
   for (int i = 0; i < n; ++i) {
-    const int64_t* row = levels + 4 * i;
+    const int64_t* row = levels + 6 * i;
     Level& lv = table.lv[i];
     lv.in = reinterpret_cast<const float*>(row[0]);
     lv.out = reinterpret_cast<float*>(row[1]);
     lv.h = static_cast<int>(row[2]);
     lv.w = static_cast<int>(row[3]);
+    lv.in_stride = row[4];
+    lv.out_stride = row[5];
     if (lv.h < 1 || lv.w < 1) return static_cast<int>(cudaErrorInvalidValue);
     lv.tiles_x = (lv.w + kTileW - 1) / kTileW;
     lv.first_tile = tiles;
     tiles += lv.tiles_x * ((lv.h + kTileH - 1) / kTileH);
   }
   table.n = n;
-  fast_nms_pyramid_kernel<<<tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(table);
+  const dim3 grid(tiles, streams);
+  fast_nms_pyramid_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(table);
   return static_cast<int>(cudaGetLastError());
 }

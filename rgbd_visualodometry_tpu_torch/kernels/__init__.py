@@ -12,6 +12,11 @@ CUDA tensor, so the package imports on machines without CUDA.
 
 Each :class:`Kernel` counts its launches in ``launches``: the one place the
 count grows is :meth:`Kernel.launch`, right after the launch succeeded.
+
+K1 and K2 take a leading stream axis, and their wrappers are
+``torch.library`` custom ops whose vmap rule folds the vmapped axis into it
+(:func:`fold_streams`), so ``torch.func.vmap`` over S streams makes one
+launch where a loop would make S (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -140,12 +145,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 FAST_NMS = Kernel(
-    "fast_nms", "rgbdvo_fast_nms_pyramid", [_P, _I, _P],
+    "fast_nms", "rgbdvo_fast_nms_pyramid", [_P, _I, _I, _P],
     source="rgbd_visualodometry_tpu_torch/csrc/fast_nms.cu",
     replaces="rgbd_visualodometry_tpu/ops/pallas_fast.py:30",
 )
 HAMMING_NN = Kernel(
-    "hamming_nn", "rgbdvo_hamming_nn", [_P, _P, _P, _I, _I, _P, _P, _P],
+    "hamming_nn", "rgbdvo_hamming_nn", [_P, _P, _P, _I, _I, _I, _P, _P, _P],
     source="rgbd_visualodometry_tpu_torch/csrc/hamming_nn.cu",
     replaces="rgbd_visualodometry_tpu/ops/pallas_match.py:152",
 )
@@ -155,6 +160,14 @@ HAMMING_MATRIX = Kernel(
     replaces="rgbd_visualodometry_tpu/ops/pallas_match.py:64",
 )
 KERNELS = (FAST_NMS, HAMMING_NN, HAMMING_MATRIX)
+
+
+def fold_streams(x, dim, batch_size: int):
+    """A vmap rule's input -> the kernel's stream axis: the vmapped axis
+    ``dim`` (None: an unbatched input, expanded) moved in front of the
+    input's own leading stream axis and merged with it, ``[B * S, ...]``."""
+    x = x.expand(batch_size, *x.shape) if dim is None else x.movedim(dim, 0)
+    return x.reshape(-1, *x.shape[2:])
 
 
 def reset_counts() -> None:

@@ -22,6 +22,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from rgbd_visualodometry_tpu_torch import random as vo_random
 from rgbd_visualodometry_tpu_torch.ops import packing, se3
@@ -68,6 +69,27 @@ class VOState:
 
     def replace(self, **kw) -> "VOState":
         return dataclasses.replace(self, **kw)
+
+
+_LEAVES = tuple(f.name for f in dataclasses.fields(VOState))
+
+# a pytree, so torch.func.vmap maps over a stack of states (parallel/mesh.py)
+pytree.register_pytree_node(
+    VOState,
+    lambda s: ([getattr(s, n) for n in _LEAVES], None),
+    lambda leaves, _: VOState(*leaves),
+    serialized_type_name=f"{__name__}.VOState",
+)
+
+
+def stack_states(states) -> VOState:
+    """Per-stream states -> one state whose leaves have a leading stream axis."""
+    return VOState(*(torch.stack([getattr(s, n) for s in states]) for n in _LEAVES))
+
+
+def unstack_state(state: VOState, s: int) -> VOState:
+    """Stream ``s`` of a stacked state."""
+    return VOState(*(getattr(state, n)[s] for n in _LEAVES))
 
 
 def _i32(v, device):
@@ -122,16 +144,24 @@ _CMINOR = {
 }
 
 
+def _perm(name: str, lead: int):
+    """The row-major permutation of a C-minor leaf behind ``lead`` stream axes."""
+    return tuple(range(lead)) + tuple(p + lead for p in _CMINOR[name])
+
+
 def state_from_numpy(leaves: dict, device="cuda") -> VOState:
     """A JAX ``VOState`` as numpy leaves (``jax.device_get(s)._asdict()``)
     -> the port's state: C-minor leaves transposed, ``mp_bip`` dropped,
-    uint32 words reinterpreted as int32 bit patterns, the key kept."""
+    uint32 words reinterpreted as int32 bit patterns, the key kept.  A
+    batched state (``MultiStreamVO.states``: every leaf with a leading
+    stream axis) stays batched."""
     device = resolve_device(device)
+    lead = np.ndim(leaves["num_kf"])  # a scalar per stream
     out = {}
     for f in dataclasses.fields(VOState):
         a = np.asarray(leaves[f.name])
         if f.name in _CMINOR:
-            a = np.transpose(a, _CMINOR[f.name])
+            a = np.transpose(a, _perm(f.name, lead))
         if f.name == "rng":
             a = a.astype(np.uint32).astype(np.int64)
         elif a.dtype == np.uint32:
@@ -141,21 +171,22 @@ def state_from_numpy(leaves: dict, device="cuda") -> VOState:
 
 
 def state_to_numpy(state: VOState) -> dict:
-    """The port's state -> numpy leaves in the JAX package's layout and
-    dtypes (``mp_bip`` comes back empty, ``[C, 0]``, as under
-    ``packed_matching``)."""
+    """The port's state, batched or not -> numpy leaves in the JAX
+    package's layout and dtypes (``mp_bip`` comes back empty, ``[C, 0]``,
+    as under ``packed_matching``)."""
+    lead = state.num_kf.dim()
     out = {}
     for f in dataclasses.fields(VOState):
         a = getattr(state, f.name).detach().cpu().numpy()
         if f.name in _CMINOR:
-            inv = np.argsort(_CMINOR[f.name])
+            inv = np.argsort(_perm(f.name, lead))
             a = np.array(np.transpose(a, inv), order="C")
         if f.name in ("mp_desc",):
             a = a.view(np.uint32)
         elif f.name == "rng":
             a = a.astype(np.uint32)
         out[f.name] = a
-    out["mp_bip"] = np.zeros((state.mp_valid.shape[0], 0), np.int8)
+    out["mp_bip"] = np.zeros(tuple(state.mp_valid.shape) + (0,), np.int8)
     return out
 
 
@@ -183,9 +214,9 @@ def incidence_from_obs(state: VOState) -> torch.Tensor:
     C = state.obs_kf.shape[0]
     cols = torch.arange(C, device=state.obs_kf.device)[:, None]
     flat = state.obs_kf.clamp(0, K - 1).long() * C + cols
-    flat = torch.where(state.obs_valid, flat, torch.full_like(flat, K * C))
+    flat = torch.where(state.obs_valid, flat, torch.full_like(flat, K * C)).reshape(-1)
     A = torch.zeros(K * C + 1, dtype=torch.int8, device=flat.device)
-    A[flat.reshape(-1)] = 1
+    A = A.scatter(0, flat, torch.ones_like(flat, dtype=torch.int8))  # out of place: vmaps
     return A[: K * C].reshape(K, C)
 
 

@@ -4,7 +4,9 @@ Counterpart of ``rgbd_visualodometry_tpu/ops/fast.py``.  The NMS'd FAST
 score map comes from kernel K1 (``csrc/fast_nms.cu``, every level of a
 pyramid in one launch: :func:`fast_nms_pyramid`) for CUDA tensors and from
 :func:`fast_nms_reference`, its plain torch version, for CPU tensors.
-Both compute ``where(s >= maxpool3x3(s), s, 0)`` with ``s = fast_score``
+The kernel takes the pyramids of S streams at once
+(:func:`fast_nms_streams`, a custom op that ``torch.func.vmap`` batches
+into one launch).  Both compute ``where(s >= maxpool3x3(s), s, 0)`` with ``s = fast_score``
 over the edge-padded image and a -inf padded NMS window - the function the
 reference's main path computes in XLA (``fast.py:113-117``) and its Pallas
 kernel ``pallas_fast._fast_nms_kernel`` fuses.  Only subtraction, min and
@@ -58,10 +60,59 @@ def fast_nms_reference(gray: torch.Tensor) -> torch.Tensor:
 MAX_LEVELS_PER_LAUNCH = 8  # kMaxLevels of csrc/fast_nms.cu
 
 
+@torch.library.custom_op("rgbdvo::fast_nms_streams", mutates_args=())
+def fast_nms_streams(levels: list[torch.Tensor]) -> torch.Tensor:
+    """The NMS'd FAST-9 score maps of S streams' pyramids in one flat
+    tensor: ``levels`` are float32 ``[S, H_l, W_l]`` on one device, the
+    result ``[S, sum_l H_l W_l]`` holds each stream's levels in order.  On
+    CUDA one launch of kernel K1 per 8 levels for all streams, on the CPU
+    the plain version per stream and level.  Under ``torch.func.vmap`` the
+    vmapped axis joins the stream axis: still one launch."""
+    raise ValueError(f"fast_nms: no kernel for device {levels[0].device}")
+
+
+@fast_nms_streams.register_kernel("cpu")
+def _fast_nms_streams_plain(levels):
+    return torch.cat([torch.stack([fast_nms_reference(g) for g in lvl]).reshape(lvl.shape[0], -1)
+                      for lvl in levels], dim=1)
+
+
+@fast_nms_streams.register_kernel("cuda")
+def _fast_nms_streams_kernel(levels):
+    S = levels[0].shape[0]
+    total = sum(g.shape[1] * g.shape[2] for g in levels)
+    out = torch.empty((S, total), dtype=torch.float32, device=levels[0].device)
+    if S == 0:
+        return out
+    levels = [g.contiguous() for g in levels]
+    rows, off = [], 0
+    for g in levels:  # (input, output, h, w, input and output stream strides)
+        h, w = g.shape[1:]
+        rows.append((g.data_ptr(), out.data_ptr() + 4 * off, h, w, h * w, total))
+        off += h * w
+    for i in range(0, len(rows), MAX_LEVELS_PER_LAUNCH):
+        chunk = rows[i : i + MAX_LEVELS_PER_LAUNCH]
+        table = (ctypes.c_int64 * (6 * len(chunk)))(*[v for row in chunk for v in row])
+        kernels.FAST_NMS.launch(ctypes.addressof(table), len(chunk), S)
+    return out
+
+
+@fast_nms_streams.register_fake
+def _fast_nms_streams_shape(levels):
+    return levels[0].new_empty((levels[0].shape[0], sum(g.shape[1] * g.shape[2] for g in levels)))
+
+
+@fast_nms_streams.register_vmap
+def _fast_nms_streams_vmap(info, in_dims, levels):
+    out = fast_nms_streams([kernels.fold_streams(g, d, info.batch_size) for g, d in zip(levels, in_dims[0])])
+    return out.reshape(info.batch_size, -1, out.shape[-1]), 0
+
+
 def fast_nms_pyramid(levels) -> list[torch.Tensor]:
     """NMS'd FAST-9 score maps of a list of float32 ``[H, W]`` images on one
-    device: on CUDA one launch of kernel K1 per 8 levels, whose outputs are
-    views of one flat buffer; on the CPU the plain version per level."""
+    device (:func:`fast_nms_streams` with one stream): on CUDA one launch of
+    kernel K1 per 8 levels, whose outputs are views of one flat buffer; on
+    the CPU the plain version per level."""
     levels = list(levels)
     for g in levels:
         if g.dim() != 2 or g.dtype != torch.float32 or g.numel() == 0:
@@ -69,20 +120,12 @@ def fast_nms_pyramid(levels) -> list[torch.Tensor]:
     devices = {g.device for g in levels}
     if len(devices) > 1:
         raise ValueError(f"fast_nms_pyramid: levels on several devices {devices}")
-    dev = devices.pop() if devices else torch.device("cpu")
-    if dev.type == "cpu":
-        return [fast_nms_reference(g) for g in levels]
-    if dev.type != "cuda":
-        raise ValueError(f"fast_nms: no kernel for device {dev}")
-    levels = [g.contiguous() for g in levels]
-    flat = torch.empty(sum(g.numel() for g in levels), dtype=torch.float32, device=dev)
-    outs = [o.view(g.shape) for o, g in zip(torch.split(flat, [g.numel() for g in levels]), levels)]
-    for i in range(0, len(levels), MAX_LEVELS_PER_LAUNCH):
-        rows = [(g.data_ptr(), o.data_ptr(), *g.shape) for g, o in
-                zip(levels[i : i + MAX_LEVELS_PER_LAUNCH], outs[i : i + MAX_LEVELS_PER_LAUNCH])]
-        table = (ctypes.c_int64 * (4 * len(rows)))(*[v for row in rows for v in row])
-        kernels.FAST_NMS.launch(ctypes.addressof(table), len(rows))
-    return outs
+    if not levels:
+        return []
+    if devices.pop().type not in ("cpu", "cuda"):
+        raise ValueError(f"fast_nms: no kernel for device {levels[0].device}")
+    flat = fast_nms_streams([g[None] for g in levels])[0]
+    return [o.view(g.shape) for o, g in zip(torch.split(flat, [g.numel() for g in levels]), levels)]
 
 
 def fast_nms(gray: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ def jacobi_eigh_sym(A: torch.Tensor, sweeps: int = 8):
     ascending ``[..., n]`` and eigenvectors as columns ``[..., n, n]``."""
     n = A.shape[-1]
     A = A.clone()
-    V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape).clone()
+    V = torch.zeros_like(A) + torch.eye(n, dtype=A.dtype, device=A.device)  # batched like A under vmap
     for _ in range(sweeps):
         for p in range(n - 1):
             for q in range(p + 1, n):

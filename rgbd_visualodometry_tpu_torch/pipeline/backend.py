@@ -19,6 +19,9 @@ result directly:
 - ``jax.lax.while_loop``'s early exit becomes ``ba_iterations`` steps whose
   ``done`` flag freezes the whole iterate (poses, points, lambda, cost), as
   in ``ops/lm.py``: the same result, with no host read per iteration;
+- the writes into fresh tensors (window positions, pose sums, the Schur
+  block diagonal) are out of place, so the step runs under
+  ``torch.func.vmap`` over a stack of states (``parallel/mesh.py``);
 - ``torch.linalg.cholesky_ex`` does not synchronise, and where it reports a
   matrix that is not positive definite (``info > 0``) the step is rejected,
   as the NaN factor of ``jnp.linalg.cholesky`` rejects it in the reference.
@@ -62,32 +65,34 @@ class BAProblem(NamedTuple):
     fixed_poses: torch.Tensor  # [MB, M, 7] observer poses from the map
 
 
-def build_problem(cfg, state: VOState, kf: int) -> BAProblem:
-    """The window, the points and their observations for keyframe ``kf``."""
+def build_problem(cfg, state: VOState, kf) -> BAProblem:
+    """The window, the points and their observations for keyframe ``kf``
+    (an int or a 0-d integer tensor)."""
     K = state.kf_pose.shape[0]
     M = state.obs_kf.shape[1]
     P, MB = min(cfg.ba_max_poses, K), cfg.ba_max_points
     dev = state.kf_pose.device
+    kf = torch.as_tensor(kf, device=dev).long()
+    is_kf = torch.arange(K, device=dev) == kf
 
     A = mapstate.incidence(state).float()  # counts stay exact in float32
-    row = A @ A[kf]  # [K] shared observations with kf
-    in_window = ((row >= cfg.covisibility_weight_threshold) | (torch.arange(K, device=dev) == kf)) & state.kf_valid
+    A_kf = A.index_select(0, kf.reshape(1))[0]
+    row = A @ A_kf  # [K] shared observations with kf
+    in_window = ((row >= cfg.covisibility_weight_threshold) | is_kf) & state.kf_valid
     weight = torch.where(in_window, row.long() + 1, -1)
-    weight[kf] = torch.where(state.kf_valid[kf], _INT32_MAX, -1)
+    weight = torch.where(is_kf, torch.where(state.kf_valid, _INT32_MAX, -1), weight)
     wweight, widx = packing.top_k(weight, P)  # ties to the lower slot, as lax.top_k
     wval = wweight > 0
     wfixed = (widx == 0) & wval  # KF id 0 fixed (backend.cpp:55)
     wtgt = torch.where(wval, widx, K)
-    wpos = torch.full((K + 1,), -1, dtype=torch.int64, device=dev)
-    wpos[wtgt] = torch.arange(P, device=dev)
-    win_kf = torch.zeros(K + 1, dtype=torch.bool, device=dev)
-    win_kf[wtgt] = True
+    wpos = torch.full((K + 1,), -1, dtype=torch.int64, device=dev).scatter(0, wtgt, torch.arange(P, device=dev))
+    win_kf = torch.zeros(K + 1, dtype=torch.bool, device=dev).scatter(0, wtgt, torch.ones_like(wval))
 
     # points observed by the window; over capacity, the ones the current
     # keyframe observes first, then by observation count
     pmask = ((win_kf[:K].float() @ A) > 0) & state.mp_alive
     n_obs = torch.sum(state.obs_valid, dim=1).clamp_max(M)
-    score = (1 - A[kf].long()) * (M + 1) + (M - n_obs)
+    score = (1 - A_kf.long()) * (M + 1) + (M - n_obs)
     pidx, pval = packing.compact_best_indices(pmask, score, MB)
 
     o_kf = state.obs_kf[pidx].clamp(0, K - 1).long()  # [MB, M]
@@ -126,8 +131,8 @@ def _pose_sum(values, o_wpos, P):
     """``[P, ...]`` float32 sums of ``values [MB, M, ...]`` by window position
     (position ``P``, the fixed and invalid edges, is dropped)."""
     flat = values.reshape((-1,) + tuple(values.shape[2:])).float()
-    out = flat.new_zeros((P + 1,) + tuple(flat.shape[1:]))
-    return out.index_add_(0, o_wpos.reshape(-1), flat)[:P]
+    out = torch.zeros((P + 1,) + tuple(flat.shape[1:]), dtype=flat.dtype, device=flat.device)
+    return out.index_add(0, o_wpos.reshape(-1), flat)[:P]
 
 
 def _lm_phase(cfg, camera, prob: BAProblem, poses0, pts0, obs_mask, iterations: int, huber_delta):
@@ -159,7 +164,12 @@ def _lm_phase(cfg, camera, prob: BAProblem, poses0, pts0, obs_mask, iterations: 
 
     free_pose = ~prob.wfixed & prob.wval
     fm = free_pose.to(f32)
-    diag = torch.arange(P, device=dev)
+    diag = torch.eye(P, dtype=torch.bool, device=dev)[:, None, :, None]
+
+    def block_diag(blocks):
+        """``[P, 6, 6]`` blocks -> ``[P, 6, P, 6]`` with them on the diagonal
+        and zeros elsewhere (a select, not a product: no 0 * inf)."""
+        return torch.where(diag, blocks[:, :, None, :], 0.0)
     eye3 = torch.eye(3, dtype=f32, device=dev)
     eye6 = torch.eye(6, dtype=f32, device=dev)
     pose_free_f = prob.o_pose_free.to(f32)
@@ -210,19 +220,19 @@ def _lm_phase(cfg, camera, prob: BAProblem, poses0, pts0, obs_mask, iterations: 
         WJ = wp_c[..., None, None] * _outer_k(Jp_c, Jl_c) + wdp_c[..., None, None] * (
             Jdpo_c[..., :, None] * Jdpt_c[..., None, :]
         )  # [MB, M, 6, 3]
-        Wt = WJ.new_zeros((MB, P + 1, 18), dtype=f32)
-        Wt.scatter_add_(1, prob.o_wpos[..., None].expand(-1, -1, 18), WJ.reshape(MB, M, 18).float())
+        Wt = torch.zeros((MB, P + 1, 18), dtype=f32, device=dev)
+        Wt = Wt.scatter_add(1, prob.o_wpos[..., None].expand(-1, -1, 18), WJ.reshape(MB, M, 18).float())
         Wt = Wt[:, :P].reshape(MB, P, 6, 3)
 
         Vinv = inv3x3(V + lam * eye3)
         Y_ = torch.einsum("pial,plk->piak", Wt, Vinv)  # [MB, P, 6, 3]
         S = -torch.einsum("piak,pjbk->iajb", Y_, Wt)  # [P, 6, P, 6]
-        S[diag, :, diag, :] += U + lam * eye6
+        S = S + block_diag(U + lam * eye6)
         rhs = -(gp - torch.einsum("piak,pk->ia", Y_, gl))  # [P, 6]
 
         # freeze fixed and invalid poses: identity rows, zero rhs
         S = S * fm[:, None, None, None] * fm[None, None, :, None]
-        S[diag, :, diag, :] += eye6 * (1.0 - fm)[:, None, None]
+        S = S + block_diag(eye6 * (1.0 - fm)[:, None, None])
         rhs = rhs * fm[:, None]
 
         Sm = S.reshape(P * 6, P * 6)
@@ -254,9 +264,10 @@ class BAOutput(NamedTuple):
     num_poses: torch.Tensor
 
 
-def ba_step(cfg, camera, state: VOState, kf: int):
-    """Two-round local BA on keyframe ``kf``; returns ``(state, BAOutput)``.
-    A masked no-op when the window or the point set is empty."""
+def ba_step(cfg, camera, state: VOState, kf):
+    """Two-round local BA on keyframe ``kf`` (an int or a 0-d integer
+    tensor); returns ``(state, BAOutput)``.  A masked no-op when the window
+    or the point set is empty."""
     K = state.kf_pose.shape[0]
     C = state.obs_kf.shape[0]
     prob = build_problem(cfg, state, kf)

@@ -55,6 +55,41 @@ class StepOutput(NamedTuple):
         pad = torch.zeros(cls.SIZE - 14 - len(cls._FIELDS), dtype=torch.float32, device=vals.device)
         return cls(packed=torch.cat([pose_c_w.float(), pose_w_c.float(), vals, pad]))
 
+    # accessors: ``packed[..., i]``, so a batched ``[S, 32]`` record works too
+    @property
+    def pose_c_w(self) -> torch.Tensor:
+        return self.packed[..., 0:7]
+
+    @property
+    def pose_w_c(self) -> torch.Tensor:
+        return self.packed[..., 7:14]
+
+    def field(self, name: str) -> torch.Tensor:
+        """The float32 value of field ``name``."""
+        return self.packed[..., self._FIELDS[name]]
+
+    def _flag(self, name):
+        return self.field(name) > 0.5
+
+    def _count(self, name):
+        return self.field(name).to(torch.int32)
+
+    tracked = property(lambda self: self._flag("tracked"))
+    is_keyframe = property(lambda self: self._flag("is_keyframe"))
+    needs_ba = property(lambda self: self._flag("needs_ba"))
+    kf_overflow = property(lambda self: self._flag("kf_overflow"))
+    fsm = property(lambda self: self._count("fsm"))
+    kf_slot = property(lambda self: self._count("kf_slot"))
+    num_candidates = property(lambda self: self._count("num_candidates"))
+    num_matches = property(lambda self: self._count("num_matches"))
+    num_inliers = property(lambda self: self._count("num_inliers"))
+    num_final_inliers = property(lambda self: self._count("num_final_inliers"))
+    num_new_mappoints = property(lambda self: self._count("num_new_mappoints"))
+    num_triangulated = property(lambda self: self._count("num_triangulated"))
+    num_keyframes = property(lambda self: self._count("num_keyframes"))
+    num_mappoints = property(lambda self: self._count("num_mappoints"))
+    num_dropped_mappoints = property(lambda self: self._count("num_dropped_mappoints"))
+
 
 class TrackInter(NamedTuple):
     """What :func:`apply_updates` needs from :func:`track_compute`."""
@@ -269,10 +304,12 @@ def track_step(cfg, camera, state: VOState, frame: FrameInput):
     return apply_updates(cfg, camera, state, track_compute(cfg, camera, state, frame))
 
 
-def frame_input(rgb: np.ndarray, depth: np.ndarray, timestamp: float, device) -> FrameInput:
-    """Host arrays -> a :class:`FrameInput` on ``device``."""
+def frame_input(rgb: np.ndarray, depth: np.ndarray, timestamp, device) -> FrameInput:
+    """Host arrays -> a :class:`FrameInput` on ``device``: one frame
+    (``[H, W, 3]``, ``[H, W]``, a float) or a batch of S
+    (``[S, H, W, 3]``, ``[S, H, W]``, ``[S]``)."""
     return FrameInput(
         rgb=torch.from_numpy(np.ascontiguousarray(rgb, dtype=np.uint8)).to(device),
         depth=torch.from_numpy(np.asarray(depth).astype(np.int32)).to(device),
-        timestamp=torch.tensor(float(timestamp), dtype=torch.float32, device=device),
+        timestamp=torch.from_numpy(np.array(timestamp, dtype=np.float64).astype(np.float32)).to(device),
     )

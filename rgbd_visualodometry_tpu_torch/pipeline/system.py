@@ -40,6 +40,16 @@ _STATS = (
 )
 
 
+def open_device(device) -> torch.device:
+    """:func:`mapstate.resolve_device`, with TF32 turned off on CUDA: full
+    float32 for the resize matmuls and the plain Hamming check."""
+    device = mapstate.resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
 @dataclass
 class FrameResult:
     timestamp: float
@@ -65,11 +75,7 @@ class VisualOdometry:
             raise NotImplementedError("viewer: see ROADMAP")
         if cfg.relax_every_kf:
             raise NotImplementedError("online loop closure (relax_every_kf): see ROADMAP")
-        self.device = mapstate.resolve_device(device)
-        if self.device.type == "cuda":
-            # full float32 for the resize matmuls and the plain Hamming check
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = open_device(device)
         self.cfg = cfg
         self.camera = Camera.from_config(cfg)
         self.state = mapstate.init_state(cfg, seed, self.device)

@@ -3,9 +3,11 @@
 The JAX package draws its RANSAC samples with ``jax.random.split`` and
 ``jax.random.uniform`` (``mapstate.py:156``, ``frontend.py:288``,
 ``pnp.py:104-118``) under jax's threefry2x32 generator with
-``jax_threefry_partitionable=True``.  This module reproduces those three
-functions on torch tensors, so the port draws exactly the same hypotheses
-from the same key and a JAX state carried into the port keeps its stream.
+``jax_threefry_partitionable=True``, and ``MultiStreamVO`` derives each
+stream's key with ``jax.random.fold_in`` (``parallel/mesh.py:71-73``).  This
+module reproduces those four functions on torch tensors, so the port draws
+exactly the same hypotheses from the same key and a JAX state carried into
+the port keeps its stream.
 ``torch.Generator`` is a different stream and is not used.
 
 A key is an int64 tensor ``[2]`` holding two uint32 words.  torch's
@@ -45,6 +47,14 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64, device=device)
 
 
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``: the hash of
+    the words ``(0, data)`` under ``key``."""
+    zero = torch.zeros((), dtype=torch.int64, device=key.device)
+    b1, b2 = threefry2x32(key[0], key[1], zero, zero + (int(data) & _MASK))
+    return torch.stack([b1, b2])
+
+
 def _counters(n: int, device):
     # iota_2x32_shape: a uint64 iota split in (high, low) words
     lo = torch.arange(n, dtype=torch.int64, device=device)
@@ -70,6 +80,8 @@ def random_bits32(key: torch.Tensor, shape) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in float32 on ``[0, 1)``: the top
-    23 bits become the mantissa of a float in ``[1, 2)``, minus one."""
-    bits = (random_bits32(key, shape) >> 9) | 0x3F800000
-    return (bits.to(torch.int32).view(torch.float32) - 1.0).clamp_min(0.0)
+    23 bits become the mantissa m of a float in ``[1, 2)``, minus one -
+    exactly ``m * 2**-23``, which is computed so (a dtype view has no vmap
+    rule in every torch release)."""
+    mantissa = random_bits32(key, shape) >> 9
+    return mantissa.to(torch.float32) * 2.0**-23

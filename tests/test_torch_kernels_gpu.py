@@ -7,7 +7,8 @@ on a machine without jax:
     python3 -m pytest tests/test_torch_kernels_gpu.py -m gpu -q --noconftest
 
 Tolerance: none - K1 uses only subtraction, min and max, K2 and K3 only
-integers.
+integers.  K1 and K2 also run on S streams at once (their custom ops and
+the ops' vmap rules): exact per stream, one launch.
 """
 
 import numpy as np
@@ -159,3 +160,93 @@ def test_detect_level_same_on_card_and_cpu(cuda):
         b = fast.detect_level(img.to(cuda), 20.0, 17, 97)
         for x, y in zip(a, b):
             assert torch.equal(x, y.cpu())
+
+
+def _stream_pyramids(S, cuda):
+    """S odd-sized random images' 8-level pyramids, as ``[S, h, w]`` levels."""
+    rng = np.random.default_rng(S)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (S, 121, 161)).astype(np.float32))
+    pyrs = [im.build_pyramid(im.gaussian_blur(g, 7, 2.0), 8, 1.2) for g in imgs]
+    return [torch.stack([p[i] for p in pyrs]).to(cuda) for i in range(8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 3, 72])
+def test_fast_nms_streams_exact(cuda, S):
+    """K1 on S streams' 8-level pyramids: one launch, every stream's every
+    level equal to the plain version."""
+    levels = _stream_pyramids(S, cuda)
+    before = kernels.FAST_NMS.launches
+    flat = fast.fast_nms_streams(levels)
+    torch.cuda.synchronize()
+    assert kernels.FAST_NMS.launches == before + 1
+    outs = torch.split(flat, [lv.shape[1] * lv.shape[2] for lv in levels], dim=1)
+    for lv, out in zip(levels, outs):
+        for s in range(S):
+            assert torch.equal(out[s].view(lv.shape[1:]), fast.fast_nms_reference(lv[s])), (s, tuple(lv.shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,C", [(1, 16384), (3, 16383), (72, 1000)])
+def test_hamming_nn_streams_exact(cuda, S, C):
+    """K2 on S streams at once: one launch, each stream equal to the plain
+    version, a ragged C and (S > 1) a stream with every keypoint masked."""
+    rng = np.random.default_rng(S + C)
+    words = lambda *s: torch.from_numpy(rng.integers(0, 2**32, s + (8,), dtype=np.uint64).astype(np.uint32).view(np.int32))  # noqa: E731
+    cand, kp = words(S, C).to(cuda), words(S, 500).to(cuda)
+    mask = torch.from_numpy(rng.random((S, 500)) >= 0.1).to(cuda)
+    if S > 1:
+        mask[1] = False
+    before = kernels.HAMMING_NN.launches
+    idx, dist = matching.hamming_nn_streams(cand, kp, mask)
+    torch.cuda.synchronize()
+    assert kernels.HAMMING_NN.launches == before + 1
+    for s in range(S):
+        want = matching.hamming_nn_reference(cand[s], kp[s], mask[s])
+        assert torch.equal(idx[s], want.kp_index) and torch.equal(dist[s], want.distance), s
+
+
+@pytest.mark.gpu
+def test_vmap_rule_equals_single_launches(cuda):
+    """K1 and K2 under torch.func.vmap over 3 streams: one launch each, the
+    same results as a Python loop of single-stream launches."""
+    levels = _stream_pyramids(3, cuda)
+    before = kernels.FAST_NMS.launches
+    got = torch.func.vmap(fast.fast_nms_pyramid)(levels)
+    torch.cuda.synchronize()
+    assert kernels.FAST_NMS.launches == before + 1
+    for s in range(3):
+        for a, b in zip([g[s] for g in got], fast.fast_nms_pyramid([lv[s] for lv in levels])):
+            assert torch.equal(a, b)
+    args = [a.to(cuda) for a in _nn_case("random")]
+    cand = torch.stack([args[0], args[0].flip(0), args[0].roll(7, 0)])
+    before = kernels.HAMMING_NN.launches
+    got = torch.func.vmap(matching.nearest_keypoints_packed, in_dims=(0, None, None))(cand, args[1], args[2])
+    torch.cuda.synchronize()
+    assert kernels.HAMMING_NN.launches == before + 1
+    for s in range(3):
+        want = matching.nearest_keypoints_packed(cand[s].contiguous(), args[1], args[2])
+        assert torch.equal(got.kp_index[s], want.kp_index) and torch.equal(got.distance[s], want.distance)
+
+
+@pytest.mark.gpu
+def test_batched_step_launches_each_kernel_once(cuda):
+    """``MultiStreamVO`` on the card: every batch step launches K1 and K2
+    once for all its streams."""
+    from rgbd_visualodometry_tpu_torch import VOConfig
+    from rgbd_visualodometry_tpu_torch.parallel import MultiStreamVO
+
+    cfg = VOConfig(image_width=320, image_height=240, camera_fx=258.6, camera_fy=258.2, camera_cx=159.3,
+                   camera_cy=127.6, number_of_features=300, level_pyramid=4, max_keyframes=32, max_mappoints=4096,
+                   packed_matching=True, enable_local_optimization=True, ba_max_points=512)
+    seqs = [synthetic.generate_sequence(3, scene=synthetic.SyntheticScene(
+        width=320, height=240, fx=258.6, fy=258.2, cx=159.3, cy=127.6, seed=s)) for s in range(3)]
+    vo = MultiStreamVO(cfg, 3)
+    kernels.reset_counts()
+    for i in range(3):
+        out = vo.step(np.stack([q[i].rgb for q in seqs]), np.stack([q[i].depth for q in seqs]),
+                      np.array([q[i].timestamp for q in seqs]))
+    vo.finish()
+    torch.cuda.synchronize()
+    assert kernels.counts()["fast_nms"] == 3 and kernels.counts()["hamming_nn"] == 3, kernels.counts()
+    assert bool(out.tracked.all())

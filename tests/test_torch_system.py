@@ -132,7 +132,8 @@ def test_evaltools_ate_matches_reference():
 
 
 def test_port_runs_without_jax():
-    """The port, imported and run for 8 CPU frames with BA in a fresh
+    """The port, imported and run for 8 CPU frames with BA and for 2
+    batched steps of two streams (``parallel.MultiStreamVO``) in a fresh
     process, loads no file of the JAX package - neither through an import
     nor by file path - and never imports jax."""
     code = (
@@ -147,6 +148,16 @@ def test_port_runs_without_jax():
         "vo = port.VisualOdometry(cfg, device='cpu')\n"
         "res = vo.run((f.rgb, f.depth, f.timestamp) for f in synthetic.generate_sequence(8, scene=sc))\n"
         "assert len(res) == 8 and res[0].tracked and vo.ba_dispatches > 0, (res, vo.ba_dispatches)\n"
+        "import numpy as np\n"
+        "from rgbd_visualodometry_tpu_torch.parallel import MultiStreamVO\n"
+        "ms = MultiStreamVO(cfg, 2, device='cpu')\n"
+        "seqs = [synthetic.generate_sequence(2, scene=synthetic.SyntheticScene(width=160, height=120, fx=129.3,"
+        " fy=129.1, cx=79.6, cy=63.8, seed=s)) for s in range(2)]\n"
+        "for i in range(2):\n"
+        "    out = ms.step(np.stack([q[i].rgb for q in seqs]), np.stack([q[i].depth for q in seqs]),"
+        " np.array([q[i].timestamp for q in seqs]))\n"
+        "ms.finish()\n"
+        "assert out.packed.shape == (2, 32) and bool(out.tracked.all()), out.packed\n"
         "ref = os.path.join(sys.argv[1], 'rgbd_visualodometry_tpu') + os.sep\n"
         "loaded = sorted(n for n, m in list(sys.modules.items())\n"
         "                if os.path.abspath(getattr(m, '__file__', None) or '').startswith(ref))\n"
@@ -193,6 +204,10 @@ def test_chip_smoke_runs_the_bench_workload():
     got = chip_smoke.slice_config()
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert (got.image_width, got.image_height, got.number_of_features, got.level_pyramid, got.max_mappoints) == (640, 480, 500, 8, 16384)
+    ms = bench.multistream_cfg(JaxVOConfig(), full_vo=True)
+    assert dataclasses.asdict(chip_smoke.multistream_config()) == dataclasses.asdict(ms)
+    assert ms.packed_matching and ms.enable_local_optimization and ms.ba_min_frame_gap == 14
+    assert (chip_smoke.MS_STREAMS, chip_smoke.MS_WARMUP) == (bench.FULL_VO_STREAMS, bench.WARMUP_FRAMES)
     for a, b in zip(chip_smoke.make_frames(got, 3), bench._make_frames(want, 3)):
         assert a.timestamp == b.timestamp
         np.testing.assert_array_equal(a.rgb, b.rgb)

@@ -74,6 +74,29 @@ def reference_pyramid(gray: torch.Tensor, nlevels: int, scale: float):
     return [torch.from_numpy(np.array(lv)).to(gray.device) for lv in levels]
 
 
+@torch.library.custom_op("rgbdvo_tests::reference_pyramids", mutates_args=())
+def _reference_pyramids(gray: torch.Tensor, nlevels: int, scale: float) -> list[torch.Tensor]:
+    """:func:`reference_pyramid` of every image of ``gray [B, H, W]``: each
+    level ``[B, h, w]``.  A custom op, so it also runs under vmap."""
+    levels = jax.vmap(_jax_pyramid(nlevels, scale))(jnp.asarray(gray.detach().cpu().numpy()))
+    return [torch.from_numpy(np.array(lv)).to(gray.device) for lv in levels]
+
+
+@_reference_pyramids.register_vmap
+def _(info, in_dims, gray, nlevels, scale):
+    if in_dims[0] is None:
+        out = _reference_pyramids(gray, nlevels, scale)
+        return out, [None] * len(out)
+    out = _reference_pyramids(gray.movedim(in_dims[0], 0).reshape(-1, *gray.shape[-2:]), nlevels, scale)
+    return [lv.reshape(info.batch_size, -1, *lv.shape[1:]) for lv in out], [0] * len(out)
+
+
+def reference_pyramid_vmappable(gray: torch.Tensor, nlevels: int, scale: float):
+    """:func:`reference_pyramid` that also runs on the images of a vmapped
+    batch (``MultiStreamVO``): inject it as ``image.build_pyramid``."""
+    return [lv[0] for lv in _reference_pyramids(gray[None], nlevels, scale)]
+
+
 @pytest.fixture
 def inject_reference_pyramid(monkeypatch):
     from rgbd_visualodometry_tpu_torch.ops import image as tim
