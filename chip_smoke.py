@@ -39,7 +39,26 @@
    per frame.
 5. Full-VO phase: the same over ``bench.single_stream_cfg(VOConfig())``
    unchanged - local BA after every keyframe - with the same checks, and
-   BA must have run once for every record that asked for it.
+   BA must have run once for every record that asked for it.  Then one
+   offline ``vo.global_relax()`` of that run (128 keyframe slots: a
+   [768, 768] solve), with synchronised stage timers; the corrected
+   trajectory's ATE must stay < 3 cm.
+5b. Loop-closure phase: the JAX package's ``slow``
+   ``test_online_relax_fullres_closed_loop`` on the port -
+   :func:`loop_config` (the full-VO config with 64 keyframes,
+   ``relax_every_kf=6``, a 1 s loop gap) over the 64-frame closed circuit
+   ``io.synthetic.loop_trajectory(64, step=0.03)`` with a +5% depth-scale
+   fault over frames 16-47, run twice with the counts reset before each:
+   ``relax_async=False`` with synchronised timers around the relaxation's
+   stages (co-observation graph, appearance graph, solve, apply), then
+   ``relax_async=True``.  Each run must track every frame, relax at least
+   once with at least one relaxation that found loop or appearance edges
+   and acted, write a trajectory file equal to the corrected in-memory
+   poses (1e-6), keep every pose finite, and launch K1 and K2 once per
+   frame.  Printed, not asserted: each acting relaxation's streamed ATE
+   before and after it, the edge counts, the relax wall and stage times,
+   and in the async run the median frame time beside the frame time while
+   a relaxation is in flight.
 6. Multistream phase: the bench's headline "72-stream batched full VO",
    ``parallel.MultiStreamVO`` over ``bench.multistream_cfg(VOConfig(),
    full_vo=True)`` (the full-VO config with packed matching and BA at most
@@ -61,7 +80,8 @@
    K3, whose path is step 3; ``max_abs_err`` is measured on the compared
    outputs at the main path's shapes.  K1 and K2 also carry a
    ``multistream`` entry: the same keys at the batched shapes, with
-   ``launches`` from step 6.
+   ``launches`` from step 6, and ``loop_closure_launches``, their counts in
+   the two runs of step 5b.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 repository beside this file, it exits nonzero before printing a result.
@@ -86,6 +106,7 @@ ATE_LIMIT_M = 0.03
 MS_STREAMS = 72  # bench.FULL_VO_STREAMS
 MS_WARMUP = 12  # bench.WARMUP_FRAMES
 MS_MEASURED = 12
+LOOP_FRAMES = 64  # tests/test_loopclosure.py::test_online_relax_fullres_closed_loop
 
 
 def sass_summary(lib) -> dict:
@@ -132,6 +153,32 @@ def multistream_config():
     repo's headline "72-stream batched full VO": :func:`full_vo_config` with
     packed matching and one batched BA solve at most every 15 steps."""
     return full_vo_config().replace(packed_matching=True, ba_min_frame_gap=14)
+
+
+def loop_config():
+    """The full-width online loop-closure workload of the JAX package's
+    ``slow`` ``test_online_relax_fullres_closed_loop``: :func:`full_vo_config`
+    with 64 keyframes, a relaxation every 6 keyframes and a 1 s loop gap
+    (the synthetic circuit spans ~2 s)."""
+    return full_vo_config().replace(max_keyframes=64, relax_every_kf=6, relax_loop_gap_s=1.0)
+
+
+def loop_frames(cfg, n: int = LOOP_FRAMES):
+    """That test's closed circuit (``io.synthetic.loop_trajectory``, 3 cm
+    steps) with a +5% depth-scale fault over its middle half: ``(frames,
+    depth images as fed)``."""
+    import numpy as np
+
+    from rgbd_visualodometry_tpu_torch.io import synthetic
+
+    scene = synthetic.SyntheticScene(
+        width=cfg.image_width, height=cfg.image_height,
+        fx=cfg.camera_fx, fy=cfg.camera_fy, cx=cfg.camera_cx, cy=cfg.camera_cy,
+    )
+    frames = [scene.render(T, timestamp=i / 30.0) for i, T in enumerate(synthetic.loop_trajectory(n, step=0.03))]
+    depths = [np.clip(f.depth.astype(np.float32) * 1.05, 0, 65535).astype(np.uint16) if n // 4 <= i < 3 * n // 4
+              else f.depth for i, f in enumerate(frames)]
+    return frames, depths
 
 
 def make_frames(cfg, n: int, seed: int = 0):
@@ -578,6 +625,186 @@ def check_run(name, frames, cfg, run) -> dict:
     return counts
 
 
+def _relax_stage_timers(stages: dict):
+    """Wrap the relaxation's stages (co-observation graph, appearance graph,
+    solve, apply) in synchronised host timers appending to ``stages``;
+    returns a function that removes them."""
+    import torch
+
+    from rgbd_visualodometry_tpu_torch.pipeline import globalopt
+
+    patched = []
+    for mod, name, label in ((globalopt.loopclosure, "build_coobservation_graph", "co-observation graph"),
+                             (globalopt.loopclosure, "build_appearance_graph", "appearance graph"),
+                             (globalopt.posegraph, "optimize_pose_graph", "solve"),
+                             (globalopt, "apply_relaxation", "apply")):
+        fn = getattr(mod, name)
+
+        def timed(*a, _fn=fn, _label=label, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            stages.setdefault(_label, []).append(time.perf_counter() - t0)
+            return out
+
+        setattr(mod, name, timed)
+        patched.append((mod, name, fn))
+    return lambda: [setattr(mod, name, fn) for mod, name, fn in patched]
+
+
+def loop_phase(cfg, frames, depths, dev, relax_async: bool) -> dict:
+    """``VisualOdometry.run`` with online loop closure over the faulted
+    circuit, relaxations synchronous or on the worker thread, the launch
+    counts reset just before.  Checks that every frame is tracked, that at
+    least one relaxation ran and one detected a loop and acted, that the
+    trajectory file equals the corrected in-memory poses, that every pose is
+    finite, and that K1 and K2 launched once per frame.  Prints each acting
+    relaxation's streamed ATE before and after it, its edge counts, its
+    stage times (synchronous run) and the frame times with and without a
+    relaxation in flight (asynchronous run).  Returns the launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import VisualOdometry, kernels
+    from rgbd_visualodometry_tpu_torch.evaltools import ate_rmse
+    from rgbd_visualodometry_tpu_torch.io.synthetic import _pose_inverse as pose_inverse
+    from rgbd_visualodometry_tpu_torch.io.trajectory import read_trajectory
+    from rgbd_visualodometry_tpu_torch.pipeline import globalopt
+
+    name = f"loop closure ({'async' if relax_async else 'sync'})"
+    cfg = cfg.replace(relax_async=relax_async)
+    gt_ts = np.asarray([f.timestamp for f in frames])
+    gt_xyz = np.asarray([pose_inverse(f.T_c_w)[4:7] for f in frames])
+    vo = VisualOdometry(cfg, device=dev)
+    relaxes = []  # (streamed ts, streamed poses, report, wall s)
+
+    def streamed():
+        return (np.asarray([r.timestamp for r in vo.results]), np.asarray([r.pose_w_c for r in vo.results]))
+
+    global_relax, finish = vo.global_relax, vo._finish_async_relax
+
+    def spied_relax(**kw):
+        ts, ps = streamed()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = global_relax(**kw)
+        torch.cuda.synchronize()
+        relaxes.append((ts, ps, rep, time.perf_counter() - t0))
+        return rep
+
+    def spied_finish(wait=False):
+        ts, ps = streamed()
+        rlx = finish(wait)
+        if rlx is not None:
+            relaxes.append((ts, ps, rlx.report, None))
+        return rlx
+
+    vo.global_relax, vo._finish_async_relax = spied_relax, spied_finish
+    stamps, in_flight = [], []
+
+    def feed():
+        for f, d in zip(frames, depths):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            in_flight.append(vo._relax_thread is not None)
+            yield f.rgb, d, f.timestamp
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    stages: dict = {}
+    restore = _relax_stage_timers(stages) if not relax_async else (lambda: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = os.path.join(tmp, "traj.txt")
+        kernels.reset_counts()
+        try:
+            results = vo.run(feed(), trajectory_path=traj)
+            torch.cuda.synchronize()
+            counts = kernels.counts()
+        finally:
+            restore()
+        file_ts, file_poses = read_trajectory(traj)
+    entries = vo._trajectory_entries()
+    est = np.asarray([r.pose_w_c for r in results])
+    tracked = sum(r.tracked for r in results)
+    ate = ate_rmse([r.timestamp for r in results], est[:, 4:7], gt_ts, gt_xyz)
+    frame_s = np.diff(stamps)
+    acted = 0
+    print(f"{name}: {tracked}/{len(frames)} tracked, {vo.num_auto_relaxes} relaxations, final ATE {100 * ate:.3f} cm, "
+          f"{vo.ba_dispatches} BA dispatches; launches {counts}")
+    for ts, ps, rep, wall in relaxes:
+        acting = rep.kf_ts.size and rep.num_loop_edges + rep.num_appearance_edges
+        line = (f"  relax after {len(ts)} frames: {rep.num_edges} co-observation edges ({rep.num_loop_edges} loop), "
+                f"{rep.num_appearance_edges} appearance, {rep.num_chain_edges} chain"
+                + (f", {1e3 * wall:.1f} ms" if wall is not None else ""))
+        if acting:
+            acted += 1
+            corrected = globalopt.correct_trajectory(rep, ts - vo.time_base, ps)
+            line += (f"; streamed ATE {100 * ate_rmse(ts, ps[:, 4:7], gt_ts, gt_xyz):.3f} -> "
+                     f"{100 * ate_rmse(ts, corrected[:, 4:7], gt_ts, gt_xyz):.3f} cm, "
+                     f"max correction {100 * rep.max_correction_m:.2f} cm")
+        else:
+            line += "; no loop: no-op"
+        print(line)
+    for label, secs in stages.items():
+        print(f"  {label}: {', '.join(f'{1e3 * x:.1f}' for x in secs)} ms")
+    med = 1e3 * statistics.median(frame_s[WARMUP_FRAMES:])
+    busy = [1e3 * x for x, f in zip(frame_s, in_flight) if f]
+    print(f"  frame time median {med:.1f} ms over frames {WARMUP_FRAMES}-{len(frames) - 1}, max {1e3 * frame_s.max():.1f} ms"
+          + (f"; with a relaxation in flight: median {statistics.median(busy):.1f} ms over {len(busy)} frames"
+             if busy else ""))
+    if len(results) != len(frames) or tracked != len(frames):
+        raise AssertionError(f"{name}: tracked {tracked} of {len(frames)} frames")
+    if vo.num_auto_relaxes < 1 or not acted:
+        raise AssertionError(f"{name}: {vo.num_auto_relaxes} relaxations, {acted} acting")
+    if not np.isfinite(est).all() or not np.isfinite(ate):
+        raise AssertionError(f"{name}: a pose is not finite")
+    if len(file_ts) != len(entries) or not np.allclose(file_poses, np.asarray([p for _, p in entries]), atol=1e-6):
+        raise AssertionError(f"{name}: the trajectory file differs from the corrected in-memory poses")
+    if counts["fast_nms"] != len(frames) or counts["hamming_nn"] != len(frames):
+        raise AssertionError(f"{name}: launches {counts}, expected fast_nms and hamming_nn {len(frames)} times each")
+    return counts
+
+
+def offline_relax(run, frames):
+    """One ``global_relax`` on the finished full-VO run (its 128-keyframe
+    capacity makes the solve [768, 768]); checks that the corrected
+    trajectory's ATE stays under the limit."""
+    import numpy as np
+    import torch
+
+    from rgbd_visualodometry_tpu_torch.evaltools import ate_rmse
+    from rgbd_visualodometry_tpu_torch.io.synthetic import _pose_inverse as pose_inverse
+    from rgbd_visualodometry_tpu_torch.pipeline import globalopt
+
+    vo, results = run[0], run[1]
+    stages: dict = {}
+    restore = _relax_stage_timers(stages)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = vo.global_relax()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    ts = np.asarray([r.timestamp for r in results])
+    est = np.asarray([r.pose_w_c for r in results])
+    corrected = globalopt.correct_trajectory(rep, ts - vo.time_base, est)
+    gt_ts = [f.timestamp for f in frames]
+    gt_xyz = [pose_inverse(f.T_c_w)[4:7] for f in frames]
+    before, after = (ate_rmse(ts, p[:, 4:7], gt_ts, gt_xyz) for p in (est, corrected))
+    K = vo.state.kf_pose.shape[0]
+    print(f"offline relax of the full-VO run: {1e3 * wall:.1f} ms ([{6 * K}, {6 * K}] solve), {rep.num_edges} "
+          f"co-observation edges ({rep.num_loop_edges} loop), {rep.num_appearance_edges} appearance, "
+          f"{rep.num_chain_edges} chain; ATE {100 * before:.3f} -> {100 * after:.3f} cm; stages "
+          + ", ".join(f"{label} {1e3 * sum(x):.1f} ms" for label, x in stages.items()))
+    if not (np.isfinite(corrected).all() and after < ATE_LIMIT_M):
+        raise AssertionError(f"offline relax: ATE {after} m is not below {ATE_LIMIT_M} m")
+
+
 def _render_streams(cfg, n_streams: int, n_frames: int):
     """Every stream's own sequence (seed ``s``, as ``bench.py`` renders
     them), rendered in a pool of worker processes."""
@@ -847,7 +1074,16 @@ def main() -> int:
     time_k1_k2 = kernel_phase(frames[0], cfg, dev)
     time_k3 = k3_phase(dev)
     check_run("slice (no BA)", frames, cfg, slice_phase(frames, cfg, dev))
-    counts = check_run("full VO", frames, full_cfg, slice_phase(frames, full_cfg, dev))
+    full_run = slice_phase(frames, full_cfg, dev)
+    counts = check_run("full VO", frames, full_cfg, full_run)
+    offline_relax(full_run, frames)
+    del full_run
+    t0 = time.perf_counter()
+    lcfg = loop_config()
+    circuit, depths = loop_frames(lcfg)
+    print(f"rendered the {len(circuit)}-frame loop circuit in {time.perf_counter() - t0:.1f} s")
+    loop_counts = {mode: loop_phase(lcfg, circuit, depths, dev, relax_async=mode == "async") for mode in ("sync", "async")}
+    del circuit, depths
     profiling = "--profile" in sys.argv[1:]
     time_batched, profile_batched = multistream_phase(multistream_config(), dev, profile_steps=3 if profiling else 0)
     # torch.profiler may slow the host's later launches: the stage timers
@@ -875,6 +1111,7 @@ def main() -> int:
         e["launches_per_frame"] = counts[e["name"]] / len(frames)
         if e["name"] in batched:  # K1 and K2 on the multistream path, at its shapes
             e["multistream"] = batched[e["name"]]
+            e["loop_closure_launches"] = {mode: c[e["name"]] for mode, c in loop_counts.items()}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -2,8 +2,9 @@
 
 One RGB-D frame in, one camera pose out: ORB extraction, exact Hamming
 matching, lane-parallel RANSAC with two-round pose LM, the fixed-capacity
-map state, keyframe policy, relocalization and localization-only mode, and
-local bundle adjustment after keyframes.  On a CUDA device the FAST-9 + NMS
+map state, keyframe policy, relocalization and localization-only mode,
+local bundle adjustment after keyframes, and loop closure (pose-graph
+relaxation of the keyframes, offline or every few keyframes online).  On a CUDA device the FAST-9 + NMS
 score map (kernel K1), the packed-Hamming nearest-keypoint search (K2) and
 the packed-Hamming distance matrix (K3) run as hand-written CUDA kernels
 built at first use from ``csrc/``; everything else is plain torch.  The

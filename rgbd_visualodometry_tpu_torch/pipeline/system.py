@@ -11,26 +11,38 @@ Local bundle adjustment (``enable_local_optimization``) runs as in the
 reference: when a keyframe's lagged record asks for it, ``backend.ba_step``
 optimizes the newest state, after the steps still in flight ("latest
 keyframe wins", ``backend.h:33-37``), at most once every
-``ba_min_frame_gap`` frames.  Online loop closure (``relax_every_kf``) and
-the viewer are not ported and raise at construction.
+``ba_min_frame_gap`` frames.
+
+Loop closure (``pipeline/globalopt.py``): ``global_relax`` relaxes the
+whole keyframe graph and deforms the map with it.  With
+``relax_every_kf = N`` the run loop relaxes every N keyframes and once more
+at run close; after each acting relaxation every materialized pose moves
+with its reference keyframe and the trajectory file is rewritten.  With
+``relax_async`` (the default) the relaxation is computed from a clone of
+the state on a worker thread, at most one in flight, and applied to the
+live state when it is done; its ops share the device's default stream with
+the frame loop.  The viewer is not ported and raises at construction.
 """
 
 from __future__ import annotations
 
 import collections
 import json
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from rgbd_visualodometry_tpu_torch import mapstate
 from rgbd_visualodometry_tpu_torch.camera import Camera
 from rgbd_visualodometry_tpu_torch.io.trajectory import TrajectoryWriter
 from rgbd_visualodometry_tpu_torch.mapstate import LOST
-from rgbd_visualodometry_tpu_torch.pipeline import backend
+from rgbd_visualodometry_tpu_torch.ops import se3
+from rgbd_visualodometry_tpu_torch.pipeline import backend, globalopt
 from rgbd_visualodometry_tpu_torch.pipeline import frontend as frontend_mod
 
 _STATS = (
@@ -73,8 +85,6 @@ class VisualOdometry:
     def __init__(self, cfg, seed: int = 0, device="cuda"):
         if cfg.enable_viewer:
             raise NotImplementedError("viewer: see ROADMAP")
-        if cfg.relax_every_kf:
-            raise NotImplementedError("online loop closure (relax_every_kf): see ROADMAP")
         self.device = open_device(device)
         self.cfg = cfg
         self.camera = Camera.from_config(cfg)
@@ -85,6 +95,11 @@ class VisualOdometry:
         self._pending: collections.deque = collections.deque()
         self._frames_since_ba = 1 << 30
         self.ba_dispatches = 0  # local BA solves run
+        self.num_auto_relaxes = 0  # online loop closures (relax_every_kf)
+        # async loop-closure worker (cfg.relax_async): at most one in flight
+        self._relax_thread: Optional[threading.Thread] = None
+        self._relax_result: Optional[globalopt.Relaxation] = None
+        self._relax_exc: Optional[BaseException] = None
 
     def put_frame(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float) -> frontend_mod.FrameInput:
         """Stage one frame on the device; the staged timestamp is the offset
@@ -155,7 +170,8 @@ class VisualOdometry:
             lag: int = 3, stats_path: Optional[str] = None):
         """Track ``(rgb, depth, timestamp)`` frames (``run_vo.cpp:89-117``):
         stream the TUM poses of tracked frames, stop on LOST unless
-        relocalization is enabled."""
+        relocalization is enabled, and relax online every
+        ``relax_every_kf`` keyframes."""
         writer = TrajectoryWriter(trajectory_path) if trajectory_path else None
         stats_f = open(stats_path, "w", encoding="utf-8") if stats_path else None
         written = 0
@@ -179,16 +195,136 @@ class VisualOdometry:
             written = len(self.results)
 
         stop_on_lost = not self.cfg.enable_relocalization
+        auto_n = int(self.cfg.relax_every_kf or 0)
+        use_async = bool(auto_n and self.cfg.relax_async)
+        kf_at_last_relax = 0
+
+        def relax_done(rep):
+            if rep.kf_ts.size and writer:
+                writer.rewrite(self._trajectory_entries())
+            if verbose:
+                print(f"auto relax #{self.num_auto_relaxes}: {rep.num_loop_edges} loop + "
+                      f"{rep.num_appearance_edges} appearance edges, "
+                      f"max correction {rep.max_correction_m * 100:.2f} cm")
+
+        def auto_relax():
+            # synchronous: the frames in flight tracked against the pre-relax
+            # map, so they are materialized (and corrected) first; a relax
+            # without loop evidence is a no-op (require_loop)
+            flush(0)
+            rep = self.global_relax(loop_gap_s=self.cfg.relax_loop_gap_s, require_loop=True)
+            self.num_auto_relaxes += 1
+            if rep.kf_ts.size:
+                self._apply_relax_correction(rep)
+            relax_done(rep)
+
         try:
             for rgb, depth, ts in frames:
                 self.process_async(rgb, depth, ts)
                 flush(lag)
+                if auto_n:
+                    kf_seen = sum(int(r.is_keyframe) for r in self.results)
+                    if kf_seen - kf_at_last_relax >= auto_n:
+                        if not use_async:
+                            kf_at_last_relax = kf_seen
+                            auto_relax()
+                        elif self._relax_thread is None:  # one in flight at most
+                            kf_at_last_relax = kf_seen
+                            self._start_async_relax()
+                    if use_async:
+                        rlx = self._finish_async_relax()
+                        if rlx is not None:
+                            relax_done(rlx.report)
                 if stop_on_lost and self.lost:
                     break
             flush(0)
+            if auto_n:
+                if use_async:
+                    rlx = self._finish_async_relax(wait=True)
+                    if rlx is not None:
+                        relax_done(rlx.report)
+                # one final relaxation closes a loop completed after the last
+                # cadence point
+                auto_relax()
         finally:
+            if self._relax_thread is not None:
+                # only on an error path: never leak the worker past the run;
+                # its relaxation is dropped
+                self._relax_thread.join()
+                self._relax_thread = self._relax_result = self._relax_exc = None
             if writer:
                 writer.close()
             if stats_f:
                 stats_f.close()
         return self.results
+
+    def _trajectory_entries(self):
+        """(timestamp, pose_w_c) rows under the run loop's write filter."""
+        return [
+            (r.timestamp, r.pose_w_c)
+            for r in self.results
+            if (r.tracked or self.cfg.compat_write_untracked_poses) and r.fsm != LOST
+        ]
+
+    def _apply_relax_correction(self, report) -> None:
+        """Move every materialized frame result rigidly with its reference
+        keyframe's relaxation delta (``globalopt.correct_trajectory``)."""
+        if report.kf_ts.size == 0 or not self.results:
+            return
+        ts = np.asarray([r.timestamp for r in self.results]) - (self.time_base or 0.0)
+        poses = np.asarray([r.pose_w_c for r in self.results], np.float32)
+        new_w_c = globalopt.correct_trajectory(report, ts, poses)
+        new_c_w = se3.inverse(torch.from_numpy(new_w_c)).numpy()
+        for r, pw, pc in zip(self.results, new_w_c, new_c_w):
+            r.pose_w_c = pw
+            r.pose_c_w = pc
+
+    def _start_async_relax(self) -> None:
+        """Start ``compute_relaxation`` on a clone of the state on a worker
+        thread; the frame loop keeps tracking.  At most one relaxation is in
+        flight ("latest wins", ``backend.h:33-37``): the run loop starts
+        one only when none is.  The clone is enqueued on the main thread,
+        before any of the worker's ops."""
+        snapshot = pytree.tree_map(torch.clone, self.state)
+        cfg = self.cfg
+
+        def worker():
+            try:
+                self._relax_result = globalopt.compute_relaxation(
+                    snapshot, cfg, loop_gap_s=cfg.relax_loop_gap_s, require_loop=True
+                )
+            except BaseException as e:  # re-raised on the main thread by _finish_async_relax
+                self._relax_exc = e
+
+        self._relax_thread = threading.Thread(target=worker, daemon=True, name="vo-relax")
+        self._relax_thread.start()
+
+    def _finish_async_relax(self, wait: bool = False):
+        """If the relaxation in flight is done (or ``wait``), apply it to the
+        live state (``globalopt.apply_relaxation``) and correct the
+        materialized results.  Returns the ``globalopt.Relaxation`` consumed,
+        else None."""
+        t = self._relax_thread
+        if t is None or (not wait and t.is_alive()):
+            return None
+        t.join()
+        self._relax_thread = None
+        if self._relax_exc is not None:
+            exc, self._relax_exc = self._relax_exc, None
+            raise exc
+        rlx, self._relax_result = self._relax_result, None
+        self.num_auto_relaxes += 1
+        if rlx is not None and rlx.report.kf_ts.size:
+            self.state = globalopt.apply_relaxation(self.state, rlx)
+            self._apply_relax_correction(rlx.report)
+        return rlx
+
+    def global_relax(self, **kwargs):
+        """Loop-closure relaxation of the whole map (``globalopt.relax_map``
+        keyword arguments): relaxes every keyframe and deforms mappoints and
+        the tracking reference with their anchor keyframes, so it is safe to
+        call mid-run and keep tracking.  Returns a ``globalopt.RelaxReport``;
+        ``globalopt.correct_trajectory`` applies it to per-frame poses
+        (frame timestamps minus ``time_base``)."""
+        self.state, report = globalopt.relax_map(self.state, self.cfg, **kwargs)
+        return report

@@ -132,10 +132,12 @@ def test_evaltools_ate_matches_reference():
 
 
 def test_port_runs_without_jax():
-    """The port, imported and run for 8 CPU frames with BA and for 2
-    batched steps of two streams (``parallel.MultiStreamVO``) in a fresh
-    process, loads no file of the JAX package - neither through an import
-    nor by file path - and never imports jax."""
+    """The port, imported and run for 8 CPU frames with BA, one
+    ``global_relax`` (``ops.posegraph``, ``ops.loopclosure``,
+    ``pipeline.globalopt``) and 2 batched steps of two streams
+    (``parallel.MultiStreamVO``) in a fresh process, loads no file of the
+    JAX package - neither through an import nor by file path - and never
+    imports jax."""
     code = (
         "import os, sys\n"
         "import rgbd_visualodometry_tpu_torch as port\n"
@@ -146,8 +148,14 @@ def test_port_runs_without_jax():
         " max_mappoints=1024, ba_max_points=256, packed_matching=True, enable_local_optimization=True)\n"
         "sc = synthetic.SyntheticScene(width=160, height=120, fx=129.3, fy=129.1, cx=79.6, cy=63.8)\n"
         "vo = port.VisualOdometry(cfg, device='cpu')\n"
-        "res = vo.run((f.rgb, f.depth, f.timestamp) for f in synthetic.generate_sequence(8, scene=sc))\n"
+        "seq = synthetic.generate_sequence(9, scene=sc)\n"
+        "res = vo.run((f.rgb, f.depth, f.timestamp) for f in seq[:8])\n"
         "assert len(res) == 8 and res[0].tracked and vo.ba_dispatches > 0, (res, vo.ba_dispatches)\n"
+        "from rgbd_visualodometry_tpu_torch.ops import loopclosure, posegraph\n"
+        "from rgbd_visualodometry_tpu_torch.pipeline import globalopt\n"
+        "rep = vo.global_relax()\n"
+        "assert rep.num_edges >= 1 and rep.kf_ts.size >= 2 and isinstance(rep, globalopt.RelaxReport), rep\n"
+        "assert vo.process(seq[8].rgb, seq[8].depth, seq[8].timestamp).tracked\n"
         "import numpy as np\n"
         "from rgbd_visualodometry_tpu_torch.parallel import MultiStreamVO\n"
         "ms = MultiStreamVO(cfg, 2, device='cpu')\n"
@@ -215,6 +223,37 @@ def test_chip_smoke_runs_the_bench_workload():
         np.testing.assert_array_equal(a.T_c_w, b.T_c_w)
 
 
+def test_chip_smoke_runs_the_fullres_loop_workload():
+    """chip_smoke's loop-closure phase is the JAX package's slow
+    ``test_online_relax_fullres_closed_loop``: the same config and the same
+    faulted circuit (here 8 frames: the fault covers frames 2-5)."""
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    from rgbd_visualodometry_tpu.config import VOConfig as JaxVOConfig
+    from rgbd_visualodometry_tpu.io import synthetic as jsyn
+
+    want = JaxVOConfig(
+        image_width=640, image_height=480, camera_fx=517.3, camera_fy=516.5, camera_cx=318.6, camera_cy=255.3,
+        number_of_features=500, level_pyramid=8, max_keyframes=64, max_mappoints=16384, max_obs_per_mappoint=8,
+        pnp_max_points=512, triangulation_batch=128, ransac_hypotheses=64, ba_max_poses=8, ba_max_points=1024,
+        relax_every_kf=6, relax_loop_gap_s=1.0,
+    )
+    cfg = chip_smoke.loop_config()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    assert cfg.relax_async and chip_smoke.LOOP_FRAMES == 64
+    frames, depths = chip_smoke.loop_frames(cfg, 8)
+    scene = jsyn.SyntheticScene(width=640, height=480, fx=517.3, fy=516.5, cx=318.6, cy=255.3)
+    for i, (f, d, T) in enumerate(zip(frames, depths, jsyn.loop_trajectory(8, step=0.03))):
+        g = scene.render(T, timestamp=i / 30.0)
+        assert f.timestamp == g.timestamp
+        np.testing.assert_array_equal(f.rgb, g.rgb)
+        faulted = np.clip(g.depth.astype(np.float32) * 1.05, 0, 65535).astype(np.uint16)
+        np.testing.assert_array_equal(d, faulted if 2 <= i < 6 else g.depth)
+
+
 def test_trajectory_and_stats_files(tmp_path, seq):
     cfg, _ = small_cfgs()
     traj, stats = str(tmp_path / "traj.txt"), str(tmp_path / "stats.jsonl")
@@ -260,7 +299,6 @@ def test_lost_is_terminal_without_relocalization(seq):
 
 
 def test_unsupported_options_raise():
-    for kw in (dict(enable_viewer=True), dict(relax_every_kf=4)):
-        cfg, _ = small_cfgs(**kw)
-        with pytest.raises(NotImplementedError):
-            VisualOdometry(cfg, device="cpu")
+    cfg, _ = small_cfgs(enable_viewer=True)
+    with pytest.raises(NotImplementedError):
+        VisualOdometry(cfg, device="cpu")

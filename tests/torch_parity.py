@@ -125,3 +125,53 @@ def asnp(x) -> np.ndarray:
 
 def cfg_fields_equal(a, b) -> bool:
     return dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+def relax_cfgs(**kw):
+    """``(port VOConfig, JAX VOConfig)`` of ``tests/test_loopclosure.py``'s
+    320x240 end-to-end runs (default matching, local BA)."""
+    params = dict(SMALL, packed_matching=False, enable_local_optimization=True)
+    params.update(kw)
+    return tconfig.VOConfig(**params), JaxVOConfig(**params)
+
+
+def loop_frames(n_frames: int, step: float):
+    """The closed synthetic circuit of the loop-closure tests at 320x240."""
+    scene = small_scene()
+    return [scene.render(T, timestamp=i / 30.0) for i, T in enumerate(synthetic.loop_trajectory(n_frames, step=step))]
+
+
+def faulted_depth(i: int, n_frames: int, depth: np.ndarray) -> np.ndarray:
+    """A +5% depth-scale calibration fault over the middle half of the
+    circuit (``tests/test_loopclosure.py``): the map grows at the wrong
+    scale, the revisit duplicates landmarks, and only loop closure can
+    reconcile the two map generations."""
+    if n_frames // 4 <= i < 3 * n_frames // 4:
+        return np.clip(depth.astype(np.float32) * 1.05, 0, 65535).astype(np.uint16)
+    return depth
+
+
+def ground_truth(frames):
+    """(timestamps, camera centres) of synthetic frames."""
+    return np.asarray([f.timestamp for f in frames]), np.asarray([synthetic._pose_inverse(f.T_c_w)[4:7] for f in frames])
+
+
+def state_to_port(jax_state, device="cpu"):
+    """A JAX ``VOState`` as the port's (``mapstate.state_from_numpy``)."""
+    from rgbd_visualodometry_tpu_torch import mapstate
+
+    return mapstate.state_from_numpy(jax.device_get(jax_state)._asdict(), device=device)
+
+
+def graph_to_port(graph):
+    """A JAX ``posegraph.PoseGraph`` as the port's (CPU tensors)."""
+    from rgbd_visualodometry_tpu_torch.ops import posegraph
+
+    return posegraph.PoseGraph(*(t(np.asarray(x)) for x in graph))
+
+
+def graph_to_jax(graph):
+    """The port's ``posegraph.PoseGraph`` as the JAX package's."""
+    from rgbd_visualodometry_tpu.ops import posegraph
+
+    return posegraph.PoseGraph(*(jnp.asarray(asnp(x)) for x in graph))
