@@ -59,6 +59,30 @@
    before and after it, the edge counts, the relax wall and stage times,
    and in the async run the median frame time beside the frame time while
    a relaxation is in flight.
+5c. CLI phase: the user-facing surfaces, driven in this process through
+   ``cli.main`` on ``configs/default.yaml`` (640x480, fr1 intrinsics, 500
+   features over 8 levels, local BA, the default capacities): (a)
+   ``--synthetic 60 --stats --save-map --global-relax``: every frame
+   tracked, ATE < 3 cm (printed, and of the relaxed trajectory file), K1
+   and K2 exactly 60 launches each, 60 trajectory lines and 60 stats
+   records, and the checkpoint reloaded (``io.checkpoint.load_state``) and
+   saved again to equal leaves, both timed; (b) 30 frames of the same
+   sequence written as a TUM directory with real epoch stamps by
+   ``io.png`` and tracked with ``--dataset --evaluate``: every frame
+   tracked, ATE < 3 cm, and the decoder that ran (the native libpng loader
+   or ``io/png.py``) and both decoders' ms per frame; (c) ``--load-map
+   --localize-only`` over that directory: every frame tracked, and the
+   keyframe, mappoint and observation leaves of the map saved after it equal
+   to those loaded; (d) the eval CLI's ``ate`` and ``rpe`` on (b)'s files;
+   (e) the viewer on the card: its payload's rule checked on 10 frames
+   (the flags are exactly the valid keypoints that a kept match points at,
+   at most ``num_matches``), then ``cli.main`` with ``enable_viewer: 1``
+   over 10 frames of (b)'s directory: every payload on the card, an
+   overlay per frame that decodes to ``draw_keypoints`` of its payload,
+   ``map.html`` of the final map, and the map PNGs of the run loop and the
+   CLI written exactly where matplotlib imports.  It prints which of
+   PyYAML, OpenCV, matplotlib, Pillow and libpng this machine has, the ms
+   per frame through the CLI and the phase's wall time.
 6. Multistream phase: the bench's headline "72-stream batched full VO",
    ``parallel.MultiStreamVO`` over ``bench.multistream_cfg(VOConfig(),
    full_vo=True)`` (the full-VO config with packed matching and BA at most
@@ -80,8 +104,9 @@
    K3, whose path is step 3; ``max_abs_err`` is measured on the compared
    outputs at the main path's shapes.  K1 and K2 also carry a
    ``multistream`` entry: the same keys at the batched shapes, with
-   ``launches`` from step 6, and ``loop_closure_launches``, their counts in
-   the two runs of step 5b.
+   ``launches`` from step 6, ``loop_closure_launches``, their counts in
+   the two runs of step 5b, and ``cli_launches``, their counts in the four
+   tracking runs of step 5c.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 repository beside this file, it exits nonzero before printing a result.
@@ -89,6 +114,8 @@ repository beside this file, it exits nonzero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -107,6 +134,11 @@ MS_STREAMS = 72  # bench.FULL_VO_STREAMS
 MS_WARMUP = 12  # bench.WARMUP_FRAMES
 MS_MEASURED = 12
 LOOP_FRAMES = 64  # tests/test_loopclosure.py::test_online_relax_fullres_closed_loop
+CLI_FRAMES = 60
+TUM_FRAMES = 30
+VIEWER_FRAMES = 10
+VIEWER_MAP_EVERY = 5
+TUM_T0 = 1305031102.175304  # the first stamp of TUM fr1/xyz: the CLI reads real epoch stamps
 
 
 def sass_summary(lib) -> dict:
@@ -805,6 +837,311 @@ def offline_relax(run, frames):
         raise AssertionError(f"offline relax: ATE {after} m is not below {ATE_LIMIT_M} m")
 
 
+def _run_cli(argv, label: str) -> tuple[int, str, dict]:
+    """``cli.main(argv)`` in this process, so the launch counters see its
+    kernels; the counts are reset just before.  Prints what it printed.
+    Returns (exit code, that text, numbers): the launch counts, the wall
+    seconds of ``VisualOdometry.run`` and of ``global_relax`` between two
+    synchronises, the frames and the host time between consecutive
+    frames."""
+    import numpy as np
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import cli, kernels
+    from rgbd_visualodometry_tpu_torch.pipeline.system import VisualOdometry
+
+    run, process_async, relax = VisualOdometry.run, VisualOdometry.process_async, VisualOdometry.global_relax
+    numbers, stamps = {}, []
+
+    def timed_run(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(self, *a, **k)
+        torch.cuda.synchronize()
+        numbers.update(run_s=time.perf_counter() - t0, frames=len(out))
+        return out
+
+    def timed_relax(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = relax(self, *a, **k)
+        torch.cuda.synchronize()
+        numbers["relax_s"] = time.perf_counter() - t0
+        return out
+
+    def stamped(self, *a, **k):
+        stamps.append(time.perf_counter())
+        return process_async(self, *a, **k)
+
+    VisualOdometry.run, VisualOdometry.process_async, VisualOdometry.global_relax = timed_run, stamped, timed_relax
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        VisualOdometry.run, VisualOdometry.process_async, VisualOdometry.global_relax = run, process_async, relax
+        print("\n".join(f"  | {ln}" for ln in buf.getvalue().strip().splitlines()))
+    numbers.update(counts=kernels.counts(), wall_s=time.perf_counter() - t0, frame_s=np.diff(stamps))
+    frame_s = numbers["frame_s"]
+    print(f"CLI {label}: rc {rc}, {numbers.get('frames')} frames, VisualOdometry.run {numbers.get('run_s', 0):.2f} s "
+          f"({1e3 * numbers.get('run_s', 0) / max(numbers.get('frames', 0), 1):.1f} ms/frame, first frame included), "
+          f"median {1e3 * float(np.median(frame_s[WARMUP_FRAMES:])) if len(frame_s) > WARMUP_FRAMES else float('nan'):.1f} "
+          f"ms between frames {WARMUP_FRAMES}-{len(stamps) - 1}; "
+          + (f"global_relax {1e3 * numbers['relax_s']:.1f} ms; " if "relax_s" in numbers else "")
+          + f"cli.main {numbers['wall_s']:.2f} s; launches {numbers['counts']}")
+    return rc, buf.getvalue(), numbers
+
+
+def _check_cli(label, rc, text, numbers, frames: int) -> None:
+    """The CLI's exit code, its "N/N frames tracked" line and K1/K2 once per
+    frame."""
+    m = re.search(r"^(\d+)/(\d+) frames tracked in ", text, re.M)
+    if rc != 0 or m is None or (int(m.group(1)), int(m.group(2))) != (frames, frames):
+        raise AssertionError(f"CLI {label}: rc {rc}, tracked {m.group(0) if m else None}, expected {frames}/{frames}")
+    c = numbers["counts"]
+    if c["fast_nms"] != frames or c["hamming_nn"] != frames:
+        raise AssertionError(f"CLI {label}: launches {c}, expected fast_nms and hamming_nn {frames} times each")
+
+
+def _npz_equal(a: str, b: str, names=None) -> list[str]:
+    """The arrays (all, or those named) that differ between two ``.npz``."""
+    import numpy as np
+
+    with np.load(a) as x, np.load(b) as y:
+        keys = sorted(x.files) if names is None else names
+        if names is None and sorted(x.files) != sorted(y.files):
+            return ["<key sets>"]
+        return [k for k in keys if x[k].dtype != y[k].dtype or x[k].shape != y[k].shape or not np.array_equal(x[k], y[k])]
+
+
+def cli_phase(dev) -> dict:
+    """Step 5c: the CLI, checkpoints, the TUM reader, the eval CLI and the
+    viewer on the card.  Returns K1's and K2's launch counts per tracking
+    run."""
+    import importlib
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import load_config, mapstate, native
+    from rgbd_visualodometry_tpu_torch.camera import Camera
+    from rgbd_visualodometry_tpu_torch.evaltools import absolute_trajectory_error
+    from rgbd_visualodometry_tpu_torch.evaltools import cli as eval_cli
+    from rgbd_visualodometry_tpu_torch.io import checkpoint, png, synthetic, tum
+    from rgbd_visualodometry_tpu_torch.io.trajectory import read_trajectory
+    from rgbd_visualodometry_tpu_torch.pipeline import frontend
+    from rgbd_visualodometry_tpu_torch.utils import StageTimer
+    from rgbd_visualodometry_tpu_torch.viz import MapViewer
+
+    t_phase = time.perf_counter()
+    have = {}
+    for name in ("yaml", "cv2", "matplotlib", "PIL"):  # none of them imported by the port
+        have[name] = importlib.util.find_spec(name) is not None
+        if have[name]:
+            have[name] = getattr(importlib.import_module(name), "__version__", True)
+    have["libpng (native.available())"] = native.available()
+    print(f"CLI phase: on this machine {', '.join(f'{k} {v}' for k, v in have.items())}"
+          + ("" if native.available() else f"; native build: {native.build_error()}"))
+    config = os.path.join(HERE, "configs", "default.yaml")
+    cfg = load_config(config)
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) synthetic frames, stats, checkpoint, offline relax
+        traj, stats, ckpt = (os.path.join(tmp, n) for n in ("syn.txt", "syn.jsonl", "map.npz"))
+        rc, text, nums = _run_cli([config, "--synthetic", str(CLI_FRAMES), "--stats", stats, "--save-map", ckpt,
+                                   "--global-relax", "--output", traj, "--quiet"], "synthetic")
+        _check_cli("synthetic", rc, text, nums, CLI_FRAMES)
+        counts["synthetic"] = nums["counts"]
+        printed = float(re.search(r"ATE vs exact ground truth: rmse=([0-9.]+) cm", text).group(1)) / 100
+        gt_T = synthetic.orbit_trajectory(CLI_FRAMES)
+        gt_ts = np.arange(CLI_FRAMES) / 30.0
+        gt_xyz = np.asarray([synthetic._pose_inverse(T)[4:7] for T in gt_T])
+        ts, poses = read_trajectory(traj)
+        relaxed = absolute_trajectory_error(ts, poses[:, 4:7], gt_ts, gt_xyz).rmse
+        records = [json.loads(ln) for ln in open(stats, encoding="utf-8")]
+        print(f"CLI synthetic: ATE {100 * printed:.2f} cm as printed, {100 * relaxed:.3f} cm of the relaxed "
+              f"trajectory file ({len(ts)} lines), {len(records)} stats records")
+        if not (printed < ATE_LIMIT_M and relaxed < ATE_LIMIT_M):
+            raise AssertionError(f"CLI synthetic: ATE {printed} m printed, {relaxed} m relaxed, limit {ATE_LIMIT_M} m")
+        if len(ts) != CLI_FRAMES or len(records) != CLI_FRAMES:
+            raise AssertionError(f"CLI synthetic: {len(ts)} trajectory lines and {len(records)} stats records")
+        timer = StageTimer()
+        again = os.path.join(tmp, "map_again.npz")
+        for _ in range(3):
+            with timer.stage("checkpoint load") as h:
+                h["result"], ccfg, meta = checkpoint.load_state(ckpt, with_meta=True, device=dev)
+            with timer.stage("checkpoint save"):
+                checkpoint.save_state(h["result"], ccfg, again, meta=meta)
+        differ = _npz_equal(ckpt, again)
+        print(f"checkpoint at the default capacities ({os.path.getsize(ckpt) / 2**20:.2f} MiB compressed): "
+              + "; ".join(timer.summary().splitlines()) + f"; leaves that differ after a reload and save: {differ}")
+        if differ:
+            raise AssertionError(f"checkpoint: a reload saved again differs in {differ}")
+
+        # (b) the same sequence as a TUM directory on disk, epoch stamps
+        scene = synthetic.SyntheticScene(width=cfg.image_width, height=cfg.image_height, fx=cfg.camera_fx,
+                                         fy=cfg.camera_fy, cx=cfg.camera_cx, cy=cfg.camera_cy,
+                                         depth_scale=cfg.camera_depth_scale)
+        seq = synthetic.generate_sequence(TUM_FRAMES, scene=scene)
+        d = os.path.join(tmp, "tum")
+        os.makedirs(os.path.join(d, "rgb"))
+        os.makedirs(os.path.join(d, "depth"))
+        lines = {"rgb": [], "depth": [], "groundtruth": []}
+        t0 = time.perf_counter()
+        for f in seq:
+            stamp = f"{TUM_T0 + f.timestamp:.6f}"
+            png.write(os.path.join(d, "rgb", f"{stamp}.png"), f.rgb)
+            png.write(os.path.join(d, "depth", f"{stamp}.png"), f.depth)
+            lines["rgb"].append(f"{stamp} rgb/{stamp}.png")
+            lines["depth"].append(f"{stamp} depth/{stamp}.png")
+            q, t = synthetic._pose_inverse(f.T_c_w)[:4], synthetic._pose_inverse(f.T_c_w)[4:7]
+            lines["groundtruth"].append(f"{stamp} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}")
+        for name, rows in lines.items():
+            with open(os.path.join(d, f"{name}.txt"), "w", encoding="utf-8") as fh:
+                fh.write("\n".join(rows) + "\n")
+        write_s = time.perf_counter() - t0
+        decode = {}
+        for use_native in ((True, False) if native.available() else (False,)):
+            t0 = time.perf_counter()
+            got = list(tum.iter_dataset(d, cfg.image_width, cfg.image_height, use_native=use_native))
+            decode["native" if use_native else "io/png.py"] = 1e3 * (time.perf_counter() - t0) / len(got)
+            if len(got) != TUM_FRAMES or not all((r == f.rgb).all() and (z == f.depth).all() for (_, r, z), f in zip(got, seq)):
+                raise AssertionError(f"TUM decode ({'native' if use_native else 'io/png.py'}) differs from the frames written")
+        print(f"TUM directory: {TUM_FRAMES} frames written by io/png.py in {1e3 * write_s / TUM_FRAMES:.1f} ms/frame; "
+              f"the CLI decodes with {'the native loader' if native.available() else 'io/png.py'}; decode "
+              + ", ".join(f"{k} {v:.1f} ms/frame" for k, v in decode.items()) + " (rgb + depth, read back exactly)")
+        traj2 = os.path.join(tmp, "tum.txt")
+        gt_file = os.path.join(d, "groundtruth.txt")
+        rc, text, nums = _run_cli([config, "--dataset", d, "--evaluate", gt_file, "--output", traj2, "--quiet"], "TUM")
+        _check_cli("TUM", rc, text, nums, TUM_FRAMES)
+        counts["tum"] = nums["counts"]
+        ate_tum = float(re.search(r"^ATE rmse: ([0-9.]+) m", text, re.M).group(1))
+        if not ate_tum < ATE_LIMIT_M:
+            raise AssertionError(f"CLI TUM: ATE {ate_tum} m is not below {ATE_LIMIT_M} m")
+
+        # (c) localize against the frozen map of (a)
+        ckpt2, traj3 = os.path.join(tmp, "after_loc.npz"), os.path.join(tmp, "loc.txt")
+        rc, text, nums = _run_cli([config, "--load-map", ckpt, "--localize-only", "--dataset", d, "--save-map", ckpt2,
+                                   "--output", traj3, "--quiet"], "localize-only")
+        _check_cli("localize-only", rc, text, nums, TUM_FRAMES)
+        counts["localize"] = nums["counts"]
+        frozen = [f"leaf_{i}" for i, n in enumerate(checkpoint.LEAVES)
+                  if n.startswith(("kf_", "mp_", "obs_")) or n in ("num_kf", "A_inc")]
+        differ = _npz_equal(ckpt, ckpt2, frozen)
+        ts3, poses3 = read_trajectory(traj3)
+        gts, gtp = read_trajectory(gt_file)
+        ate_loc = absolute_trajectory_error(ts3, poses3[:, 4:7], gts, gtp[:, 4:7]).rmse
+        print(f"CLI localize-only: {len(ts3)} poses, ATE {100 * ate_loc:.3f} cm; of {len(frozen)} map leaves "
+              f"{len(differ)} changed {differ}")
+        if differ or len(ts3) != TUM_FRAMES:
+            raise AssertionError(f"CLI localize-only: map leaves changed {differ}, {len(ts3)} poses")
+
+        # (d) the eval CLI on (b)'s files
+        for argv in (["ate", gt_file, traj2, "--verbose", "--save", os.path.join(tmp, "aligned.txt")],
+                     ["rpe", gt_file, traj2, "--verbose"]):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = eval_cli.main(argv)
+            print("\n".join(f"  | {ln}" for ln in buf.getvalue().strip().splitlines()))
+            if rc != 0:
+                raise AssertionError(f"eval CLI {argv[0]}: rc {rc}")
+            if argv[0] == "ate":
+                rmse = float(re.search(r"absolute_translational_error.rmse ([0-9.]+) m", buf.getvalue()).group(1))
+                if abs(rmse - ate_tum) > 1e-4 or len(open(argv[-1]).readlines()) != TUM_FRAMES:
+                    raise AssertionError(f"eval CLI ate: {rmse} m vs the CLI's {ate_tum} m")
+
+        # (e) the viewer on the card: the payload's rule, checked on the
+        # step's intermediates...
+        vcfg = cfg.replace(enable_viewer=True)
+        cam = Camera.from_config(vcfg)
+        state = mapstate.init_state(vcfg, 0, dev)
+        flagged = []
+        for i, f in enumerate(seq[:VIEWER_FRAMES]):
+            it = frontend.track_compute(vcfg, cam, state, frontend.frame_input(f.rgb, f.depth, f.timestamp, dev))
+            payload = frontend.viewer_payload(it)
+            state, out = frontend.apply_updates(vcfg, cam, state, it)
+            if not (payload.device == state.kf_pose.device and payload.dtype == torch.float32
+                    and payload.shape == (vcfg.number_of_features, 3)):
+                raise AssertionError(f"viewer payload: {payload.device} {payload.dtype} {tuple(payload.shape)}")
+            v = payload.cpu().numpy()
+            want = np.zeros(len(v), bool)
+            want[it.kpi[it.mval].cpu().numpy()] = True
+            want &= it.kp_valid.cpu().numpy()
+            flags = v[:, 2] > 0.5
+            n_match = int(out.num_matches)
+            if not (np.array_equal(flags, want) and np.array_equal(v[:, :2], it.xy.cpu().numpy())
+                    and flags.sum() <= n_match and (i == 0 or flags.sum() > 0)):
+                raise AssertionError(f"viewer payload, frame {i}: {flags.sum()} flags, {want.sum()} kept matches, "
+                                     f"{n_match} matches")
+            flagged.append((int(flags.sum()), n_match))
+        # ... then through the user's entry point: cli.main on a config with
+        # enable_viewer: 1, in the temporary directory, where the CLI's
+        # final render goes to viewer_out/
+        vdir = os.path.join(tmp, "viewer")
+        vyaml = os.path.join(tmp, "viewer.yaml")
+        with open(config, encoding="utf-8") as fh:
+            text = fh.read()
+        if "\nenable_viewer: 0\n" not in text:
+            raise AssertionError(f"{config} has no 'enable_viewer: 0' line")
+        with open(vyaml, "w", encoding="utf-8") as fh:
+            fh.write(text.replace("\nenable_viewer: 0\n", "\nenable_viewer: 1\n")
+                     + f"viewer_dir: {vdir}\nviewer_map_every: {VIEWER_MAP_EVERY}\n")
+        from rgbd_visualodometry_tpu_torch.pipeline.system import VisualOdometry
+
+        materialize, seen = VisualOdometry._materialize, []
+
+        def spy(self, ts, out, *a, **k):
+            seen.append((out.viewer.device.type, out.viewer.cpu().numpy()))
+            res = materialize(self, ts, out, *a, **k)
+            seen[-1] += (res.stats["num_matches"],)
+            return res
+
+        cwd = os.getcwd()
+        VisualOdometry._materialize = spy
+        try:
+            os.chdir(tmp)
+            rc, text, nums = _run_cli([vyaml, "--dataset", d, "--max-frames", str(VIEWER_FRAMES),
+                                       "--output", os.path.join(tmp, "viewer.txt"), "--quiet"], "viewer")
+        finally:
+            os.chdir(cwd)
+            VisualOdometry._materialize = materialize
+        _check_cli("viewer", rc, text, nums, VIEWER_FRAMES)
+        counts["viewer"] = nums["counts"]
+        if len(seen) != VIEWER_FRAMES or any(dt != dev.type or v.shape != (cfg.number_of_features, 3)
+                                              or (v[:, 2] > 0.5).sum() > n for dt, v, n in seen):
+            raise AssertionError(f"CLI viewer: payloads {[(dt, v.shape, int((v[:, 2] > 0.5).sum()), n) for dt, v, n in seen]}")
+        for i, (f, (_, v, _)) in enumerate(zip(seq, seen)):
+            path = os.path.join(vdir, f"frame_{i:05d}.png")
+            if not np.array_equal(png.read(path), MapViewer.draw_keypoints(f.rgb, v[:, :2], v[:, 2] > 0.5)):
+                raise AssertionError(f"CLI viewer: overlay {path} does not decode to draw_keypoints of its payload")
+        maps = [f"map_{i:05d}.png" for i in range(0, VIEWER_FRAMES, VIEWER_MAP_EVERY)]
+        files = sorted(os.listdir(vdir))
+        want_files = sorted([f"frame_{i:05d}.png" for i in range(VIEWER_FRAMES)] + ["map.html"]
+                            + (maps if have["matplotlib"] else []))
+        final = os.path.join(tmp, "viewer_out")
+        final_line = "map rendered to viewer_out/map_00000.png" if have["matplotlib"] else \
+            "map not rendered: matplotlib does not import here"
+        html = open(os.path.join(vdir, "map.html"), encoding="utf-8").read()
+        m = re.search(r"map: (\d+) points, (\d+) keyframes", html)
+        if files != want_files or final_line not in text.splitlines() or m is None or int(m.group(1)) == 0 or int(m.group(2)) == 0:
+            raise AssertionError(f"CLI viewer: files {files}, expected {want_files}; final line {final_line!r} "
+                                 f"printed: {final_line in text}; map.html {m.group(0) if m else None}")
+        if sorted(os.listdir(final)) != (["map_00000.png"] if have["matplotlib"] else []):
+            raise AssertionError(f"CLI viewer: {final} holds {sorted(os.listdir(final))}")
+        print(f"viewer on the card: the payload rule holds on {len(flagged)} frames, (flags, num_matches) "
+              f"{flagged}; through cli.main: {len(seen)} payloads on {dev.type}, {VIEWER_FRAMES} overlays decode to "
+              f"draw_keypoints of them, {m.group(0)} in map.html, map PNGs "
+              + ("rendered" if have["matplotlib"] else "skipped: matplotlib does not import here")
+              + f"; files {files}")
+    print(f"CLI phase: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def _render_streams(cfg, n_streams: int, n_frames: int):
     """Every stream's own sequence (seed ``s``, as ``bench.py`` renders
     them), rendered in a pool of worker processes."""
@@ -1084,6 +1421,7 @@ def main() -> int:
     print(f"rendered the {len(circuit)}-frame loop circuit in {time.perf_counter() - t0:.1f} s")
     loop_counts = {mode: loop_phase(lcfg, circuit, depths, dev, relax_async=mode == "async") for mode in ("sync", "async")}
     del circuit, depths
+    cli_counts = cli_phase(dev)
     profiling = "--profile" in sys.argv[1:]
     time_batched, profile_batched = multistream_phase(multistream_config(), dev, profile_steps=3 if profiling else 0)
     # torch.profiler may slow the host's later launches: the stage timers
@@ -1112,6 +1450,7 @@ def main() -> int:
         if e["name"] in batched:  # K1 and K2 on the multistream path, at its shapes
             e["multistream"] = batched[e["name"]]
             e["loop_closure_launches"] = {mode: c[e["name"]] for mode, c in loop_counts.items()}
+            e["cli_launches"] = {run: c[e["name"]] for run, c in cli_counts.items()}
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -66,7 +66,7 @@ class MultiStreamVO:
             for s in range(n_streams)
         ])
         self._compute = torch.func.vmap(functools.partial(frontend_mod.track_compute, cfg, self.camera))
-        self._update = torch.func.vmap(functools.partial(frontend_mod.apply_updates, cfg, self.camera))
+        self._update = torch.func.vmap(functools.partial(_apply_updates_packed, cfg, self.camera))
         self.enable_backend = bool(cfg.enable_local_optimization)
         self._ba = torch.func.vmap(functools.partial(_masked_ba, cfg, self.camera))
         # per-stream absolute-time origin: the device sees float32 offsets
@@ -92,7 +92,8 @@ class MultiStreamVO:
         :class:`StepOutput` (``packed [S, 32]``)."""
         frames = rgb if isinstance(rgb, frontend_mod.FrameInput) else self.put_batch(rgb, depth, timestamps)
         inter = self._compute(self.states, frames)
-        self.states, out = self._update(self.states, inter)
+        self.states, packed = self._update(self.states, inter)
+        out = frontend_mod.StepOutput(packed=packed)
         if self.enable_backend:
             self._ba_pending.append(_HostRecord(out.packed))
             self._drain_ba(BA_LAG)
@@ -126,6 +127,13 @@ class MultiStreamVO:
             mean_inliers=float(out.num_inliers.float().mean()),
             total_mappoints=int(out.num_mappoints.sum()),
         )
+
+
+def _apply_updates_packed(cfg, camera, state, inter):
+    """``apply_updates`` returning its record's tensor: vmap takes no None
+    (``StepOutput.viewer``) in an output."""
+    state, out = frontend_mod.apply_updates(cfg, camera, state, inter)
+    return state, out.packed
 
 
 def _masked_ba(cfg, camera, state, kf, pred):

@@ -13,7 +13,7 @@ reference.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -36,9 +36,12 @@ class FrameInput(NamedTuple):
 class StepOutput(NamedTuple):
     """Per-frame result as ONE packed float32 ``[32]`` record in the
     reference's layout (``frontend.py:66-76``): ``T_c_w`` at 0-6, ``T_w_c``
-    at 7-13, then ``_FIELDS``; a frame costs one copy to the host."""
+    at 7-13, then ``_FIELDS``; a frame costs one copy to the host.
+    ``viewer`` is the live viewer's payload, set by :func:`track_step`
+    under ``cfg.enable_viewer`` (:func:`viewer_payload`), else None."""
 
     packed: torch.Tensor
+    viewer: Optional[torch.Tensor] = None
 
     _FIELDS = {
         "tracked": 14, "fsm": 15, "is_keyframe": 16, "needs_ba": 17,
@@ -299,9 +302,25 @@ def apply_updates(cfg, camera, state: VOState, it: TrackInter):
     return state, out
 
 
+def viewer_payload(it: TrackInter) -> torch.Tensor:
+    """The live viewer's ``[N, 3]`` float32 per keypoint: x, y and 1 where
+    the fine round matched it to a mappoint (``frontend.py:348-359``), the
+    per-frame overlay of ``viewer.cpp:144-150``."""
+    N = it.xy.shape[0]
+    matched = packing.scatter_back(N, torch.where(it.mval, it.kpi, torch.full_like(it.kpi, N)), it.mval)
+    return torch.cat([it.xy.float(), (matched & it.kp_valid).float()[:, None]], dim=-1)
+
+
 def track_step(cfg, camera, state: VOState, frame: FrameInput):
-    """``(state, frame) -> (state, StepOutput)``."""
-    return apply_updates(cfg, camera, state, track_compute(cfg, camera, state, frame))
+    """``(state, frame) -> (state, StepOutput)``.  The viewer payload is
+    made here, on the single-stream path only: ``MultiStreamVO`` vmaps
+    :func:`track_compute` and :func:`apply_updates`, whose outputs hold no
+    optional field."""
+    it = track_compute(cfg, camera, state, frame)
+    state, out = apply_updates(cfg, camera, state, it)
+    if cfg.enable_viewer:
+        out = out._replace(viewer=viewer_payload(it))
+    return state, out
 
 
 def frame_input(rgb: np.ndarray, depth: np.ndarray, timestamp, device) -> FrameInput:

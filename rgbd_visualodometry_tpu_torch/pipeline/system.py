@@ -21,7 +21,13 @@ with its reference keyframe and the trajectory file is rewritten.  With
 ``relax_async`` (the default) the relaxation is computed from a clone of
 the state on a worker thread, at most one in flight, and applied to the
 live state when it is done; its ops share the device's default stream with
-the frame loop.  The viewer is not ported and raises at construction.
+the frame loop.
+
+With ``enable_viewer`` the live viewer (``viz.MapViewer``, the reference's
+render thread ``viewer.cpp:34-54``) is fed from the lagged drain: a
+keypoint overlay per frame, and every ``viewer_map_every`` frames a map
+render (where matplotlib imports) and the interactive ``map.html``, which
+``run`` writes once more at its end.
 """
 
 from __future__ import annotations
@@ -83,8 +89,6 @@ class VisualOdometry:
     """
 
     def __init__(self, cfg, seed: int = 0, device="cuda"):
-        if cfg.enable_viewer:
-            raise NotImplementedError("viewer: see ROADMAP")
         self.device = open_device(device)
         self.cfg = cfg
         self.camera = Camera.from_config(cfg)
@@ -100,6 +104,12 @@ class VisualOdometry:
         self._relax_thread: Optional[threading.Thread] = None
         self._relax_result: Optional[globalopt.Relaxation] = None
         self._relax_exc: Optional[BaseException] = None
+        self._viewer = None
+        self._viewer_frame = 0
+        if cfg.enable_viewer:
+            from rgbd_visualodometry_tpu_torch.viz import MapViewer
+
+            self._viewer = MapViewer(cfg.viewer_dir)
 
     def put_frame(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float) -> frontend_mod.FrameInput:
         """Stage one frame on the device; the staged timestamp is the offset
@@ -108,9 +118,12 @@ class VisualOdometry:
             self.time_base = float(timestamp)
         return frontend_mod.frame_input(rgb, depth, float(timestamp) - self.time_base, self.device)
 
-    def process_async(self, rgb, depth=None, timestamp=None):
+    def process_async(self, rgb, depth=None, timestamp=None, rgb_ref=None):
         """Enqueue one frame: numpy ``(rgb, depth, timestamp)`` or a staged
-        :class:`FrameInput` with its host ``timestamp``."""
+        :class:`FrameInput` with its host ``timestamp``.  With the viewer on,
+        ``rgb_ref`` is the image its overlay draws on: by default the numpy
+        ``rgb``, or a staged frame's device copy, read back when the lagged
+        drain materializes the frame."""
         t0 = time.perf_counter()
         if isinstance(rgb, frontend_mod.FrameInput):
             frame = rgb
@@ -118,10 +131,12 @@ class VisualOdometry:
                 timestamp = float(frame.timestamp) + (self.time_base or 0.0)
         else:
             frame = self.put_frame(rgb, depth, timestamp)
+        if rgb_ref is None and self._viewer is not None:
+            rgb_ref = frame.rgb if isinstance(rgb, frontend_mod.FrameInput) else rgb
         self.state, out = frontend_mod.track_step(self.cfg, self.camera, self.state, frame)
-        self._pending.append((float(timestamp), out, time.perf_counter() - t0))
+        self._pending.append((float(timestamp), out, time.perf_counter() - t0, rgb_ref))
 
-    def _materialize(self, ts: float, out, dispatch_s: float) -> FrameResult:
+    def _materialize(self, ts: float, out, dispatch_s: float, rgb_ref=None) -> FrameResult:
         o = out.packed.cpu().numpy()  # one host copy of the record
         f = frontend_mod.StepOutput._FIELDS
         self._frames_since_ba += 1
@@ -140,6 +155,17 @@ class VisualOdometry:
             step_seconds=dispatch_s,
         )
         self.results.append(res)
+        if self._viewer is not None and out.viewer is not None and rgb_ref is not None:
+            v = out.viewer.cpu().numpy()
+            img = rgb_ref.cpu().numpy() if isinstance(rgb_ref, torch.Tensor) else np.asarray(rgb_ref)
+            self._viewer.render_overlay(img, v[:, :2], v[:, 2] > 0.5, name=f"frame_{self._viewer_frame:05d}.png")
+            if self._viewer_frame % max(self.cfg.viewer_map_every, 1) == 0:
+                traj = np.asarray([r.pose_w_c[4:7] for r in self.results if r.tracked])
+                self._viewer.maybe_render_map(self.map_snapshot(), trajectory=traj, name=f"map_{self._viewer_frame:05d}.png")
+                # map.html is rewritten in place, so a browser tab on it
+                # follows a long run
+                self.export_map_html()
+            self._viewer_frame += 1
         return res
 
     def drain(self, keep_lag: int = 0) -> Optional[FrameResult]:
@@ -187,7 +213,7 @@ class VisualOdometry:
                 if stats_f:
                     stats_f.write(json.dumps(dict(
                         timestamp=res.timestamp, tracked=res.tracked, fsm=res.fsm,
-                        is_keyframe=res.is_keyframe, step_seconds=res.step_seconds, **res.stats,
+                        is_keyframe=res.is_keyframe, **res.stats,
                     )) + "\n")
                 write_ok = res.tracked or self.cfg.compat_write_untracked_poses
                 if writer and write_ok and res.fsm != LOST:
@@ -247,15 +273,22 @@ class VisualOdometry:
                 # cadence point
                 auto_relax()
         finally:
-            if self._relax_thread is not None:
+            if use_async and self._relax_thread is not None:
                 # only on an error path: never leak the worker past the run;
-                # its relaxation is dropped
-                self._relax_thread.join()
-                self._relax_thread = self._relax_result = self._relax_exc = None
+                # a relaxation it finishes is applied as on the normal path,
+                # and its own failure is dropped so the run's error surfaces
+                try:
+                    rlx = self._finish_async_relax(wait=True)
+                    if rlx is not None:
+                        relax_done(rlx.report)
+                except Exception:
+                    pass
             if writer:
                 writer.close()
             if stats_f:
                 stats_f.close()
+            if self._viewer is not None:
+                self.export_map_html()
         return self.results
 
     def _trajectory_entries(self):
@@ -318,6 +351,15 @@ class VisualOdometry:
             self.state = globalopt.apply_relaxation(self.state, rlx)
             self._apply_relax_correction(rlx.report)
         return rlx
+
+    def export_map_html(self, edges=None, name: str = "map.html"):
+        """(Re-)write the interactive 3D map, with optional loop-constraint
+        segments (``RelaxReport.loop_pairs_w``) in green.  Returns its path;
+        None (and writes nothing) unless the viewer is on."""
+        if self._viewer is None:
+            return None
+        traj = np.asarray([r.pose_w_c[4:7] for r in self.results if r.tracked])
+        return self._viewer.export_html(self.map_snapshot(), trajectory=traj, edges=edges, name=name)
 
     def global_relax(self, **kwargs):
         """Loop-closure relaxation of the whole map (``globalopt.relax_map``

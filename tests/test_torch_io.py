@@ -98,3 +98,93 @@ def test_trajectory_writer_byte_equal(tmp_path):
     t_a, p_a = ttraj.read_trajectory(str(tmp_path / "port" / "traj.txt"))
     t_b, p_b = jtraj.read_trajectory(str(tmp_path / "jax" / "traj.txt"))
     assert t_a.tobytes() == t_b.tobytes() and p_a.tobytes() == p_b.tobytes() and len(t_a) == 5
+
+
+# ---- the OpenCV YAML subset, parsed without PyYAML -------------------------
+
+yaml = pytest.importorskip("yaml")
+
+
+def _pyyaml(text):
+    """What the reference path gives: PyYAML on the text without the
+    ``%YAML`` directive and ``---`` lines (the JAX ``_parse_opencv_yaml``)."""
+    lines = [ln for ln in text.splitlines() if not ln.startswith("%YAML") and ln.strip() != "---"]
+    return yaml.safe_load("\n".join(lines)) or {}
+
+
+def _same(a: dict, b: dict) -> bool:
+    """Dict equality with NaN equal to NaN and types compared too."""
+    if list(a) != list(b):
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        if type(x) is not type(y):
+            return False
+        if isinstance(x, float) and x != x:
+            if y == y:
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(REPO, "configs", "*.yaml"))))
+def test_opencv_yaml_parse_equals_pyyaml_on_the_repo_configs(path):
+    text = open(path, encoding="utf-8").read()
+    got = tconfig._parse_opencv_yaml(text)
+    assert _same(got, _pyyaml(text)) and _same(got, jconfig._parse_opencv_yaml(text))
+    assert got["camera.fx"] == 517.3 and got["enable_viewer"] == 0 and got["dataset_dir"] == ""
+
+
+def test_opencv_yaml_parse_equals_pyyaml_on_the_cli_test_config(tmp_path):
+    from test_cli_dataset import small_yaml
+
+    text = open(small_yaml(tmp_path, "/data/rgbd_dataset_freiburg1_xyz", "./out/traj.txt"), encoding="utf-8").read()
+    got = tconfig._parse_opencv_yaml(text)
+    assert _same(got, _pyyaml(text)) and len(got) == 28 and got["ba_max_points"] == 2048
+    assert dataclasses.asdict(tconfig.VOConfig.from_dict(got)) == dataclasses.asdict(jconfig.VOConfig.from_dict(_pyyaml(text)))
+
+
+@pytest.mark.parametrize("text", [
+    "a:\n  b: 1\n", "a: [1, 2]\n", "a: {b: 1}\n", "- 1\n", "a: b: c\n", "a: 'open\n", "a: \"x\\q\"\n",
+    "a: 'x' y\n", "  a: 1\n", "a: &anchor 1\n", "a: |\n  text\n",
+])
+def test_opencv_yaml_refuses_other_constructs(text):
+    with pytest.raises(ValueError):
+        tconfig._parse_opencv_yaml(text)
+
+
+def _flat_configs():
+    from hypothesis import strategies as st
+
+    word = st.text(alphabet="abcdefghijklmnopqrstuvwxyzABCXYZ0123456789_./-", min_size=1, max_size=12)
+    key = st.from_regex(r"[a-zA-Z][a-zA-Z0-9_.]{0,15}", fullmatch=True)
+    scalar = st.one_of(
+        st.integers(-10**12, 10**12).map(str),
+        st.floats(allow_nan=False, allow_infinity=False).map(repr),
+        st.sampled_from(["1.", "-0.5", ".5", "1.5e+3", "2.0E-2", "1e5", "0x1F", "017", "08", "0b101", "1_000", "1:30",
+                         "+12", ".inf", "-.Inf", ".nan", "~", "null", "Null", "", "yes", "No", "ON", "off", "True",
+                         "false", "y", "n", "2001-12-14x"]),
+        word.filter(lambda w: w[0] not in "-"),
+        st.text(alphabet="abc XYZ012#:-'", max_size=10).map(lambda s: "'" + s.replace("'", "''") + "'"),
+        st.text(alphabet="abc XYZ012#:'\"\\\t", max_size=10).map(
+            lambda s: '"' + s.replace("\\", "\\\\").replace('"', '\\"').replace("\t", "\\t") + '"'),
+    )
+    comment = st.sampled_from(["", " # a comment", "   #x", " #"])
+    line = st.tuples(key, scalar, comment).map(lambda t: f"{t[0]}: {t[1]}{t[2]}".rstrip() if t[1] == "" else f"{t[0]}: {t[1]}{t[2]}")
+    extra = st.sampled_from(["", "# comment line", "   # indented comment", "---"])
+    return st.lists(st.tuples(line, extra), min_size=1, max_size=12, unique_by=lambda t: t[0].split(":")[0]).map(
+        lambda rows: "%YAML:1.0\n" + "".join(f"{ln}\n{x}\n" for ln, x in rows))
+
+
+def test_opencv_yaml_parse_equals_pyyaml_on_generated_configs():
+    from hypothesis import HealthCheck, given, settings
+
+    @settings(max_examples=150, deadline=None, derandomize=True, suppress_health_check=list(HealthCheck))
+    @given(_flat_configs())
+    def check(text):
+        want = _pyyaml(text)
+        got = tconfig._parse_opencv_yaml(text)
+        assert _same(got, want), (text, got, want)
+
+    check()
