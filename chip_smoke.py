@@ -94,6 +94,32 @@
    and K2 (72 x 16384 x 500, one stream all masked) are compared with their
    plain versions per stream, and timed after the other kernels, with
    ``torch.bmm`` in fp16 as K2's library yardstick.
+6b. Distributed phase: the port's multi-process half (``parallel``) on
+   the one card, every rank on ``cuda:0``.  Two spawned ranks of a gloo
+   group with CUDA tensors (NCCL refuses two ranks on one device) run
+   (a) ``sharded_match_descriptors`` at C = 65536 (32768 rows a rank),
+   N = 500: each rank's K2 rows exactly the plain version
+   (``hamming_nn_reference``) + ``gate_matches`` over the whole pool, and
+   K2 on the whole pool exactly its plain version; (b)
+   ``ShardedMapVO(VOConfig())``, the JAX dry-run's production shape
+   (640x480, 500 features, 65536 map points, 512 keyframes, local BA),
+   over 30 frames of the bench sequence, held to ``VisualOdometry``'s run on
+   them in this process: every frame tracked, ATE at most 1.1x, the
+   replicated leaves bit-equal across the ranks after every frame (an
+   all-reduce MAX and MIN of a checksum), K1 and K2 once per frame on each
+   rank, each rank's pool half of ``VisualOdometry``'s, and the first frame
+   whose keyframe decision differs printed with the poses around it; (c)
+   ``MultiStreamVO`` with step 6's 72 streams split 36 and 36 (its
+   sequences read from memory-mapped files), 12 + 12 steps: every
+   stream-frame tracked, the whole ``[S, 32]`` records against step 6's
+   one-process records (the decisions equal on every stream-frame; each
+   stream's ATE at most 1.05x one process's + 0.5 mm; the counts and poses
+   that differ printed), the BA dispatches of step 6's run, K1 and K2 once
+   per step.
+   Then (d) one rank of an NCCL group: 5 frames of ``ShardedMapVO`` whose
+   discrete outputs equal ``VisualOdometry``'s, poses within 1e-5.  The
+   ms/frame and stream-frames/s it prints are two processes sharing one
+   card: no scaling number.
 7. With ``--profile``: a breakdown of one full-VO frame's time and of one
    multistream batch step's by stage, ``ba_step`` included, and the device
    busy share (torch.profiler) - not part of the default run.
@@ -105,8 +131,9 @@
    outputs at the main path's shapes.  K1 and K2 also carry a
    ``multistream`` entry: the same keys at the batched shapes, with
    ``launches`` from step 6, ``loop_closure_launches``, their counts in
-   the two runs of step 5b, and ``cli_launches``, their counts in the four
-   tracking runs of step 5c.
+   the two runs of step 5b, ``cli_launches``, their counts in the four
+   tracking runs of step 5c, and ``distributed_launches``, their counts on
+   each rank in step 6b.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 repository beside this file, it exits nonzero before printing a result.
@@ -1160,9 +1187,10 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
     tracks every frame with ATE < 3 cm, that a masked BA dispatch ran and
     that K1 and K2 launched once per batch step.  Returns a function that
     times K1 and K2 at the batched shapes (after the other timings) and
-    returns their entries for the JSON line, and one that runs
+    returns their entries for the JSON line, one that runs
     :func:`profile_phase` over ``2 * profile_steps`` more batch steps
-    (``--profile``; None without)."""
+    (``--profile``; None without), and what the distributed phase compares
+    with: the sequences, the steps, the BA dispatches and the largest ATE."""
     import numpy as np
     import torch
 
@@ -1226,6 +1254,7 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
         raise AssertionError(f"multistream: {vo.ba_dispatches} BA dispatches")
     if counts["fast_nms"] != n or counts["hamming_nn"] != n:
         raise AssertionError(f"multistream: launches {counts}, expected fast_nms and hamming_nn {n} times each")
+    reference = dict(seqs=seqs, steps=n, ba_dispatches=vo.ba_dispatches, ate_max=max(ates), records=rec)
     profile = None
     if profile_steps:
         def profile():
@@ -1297,7 +1326,360 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
                   f"({basis}), {100 * bound_ms / device_ms:.1f}% of bound; library {lib_txt}")
         return entries
 
-    return timings, profile
+    return timings, profile, reference
+
+
+DIST_FRAMES = 30  # ShardedMapVO frames at the production shape (step 6b b)
+NCCL_FRAMES = 5
+SHARE_NOTE = "2 processes sharing one H100, not a scaling number"
+# step 6b (c): the ranks' records against step 6's one process, whose batch
+# is 72 streams to their 36.  On the card the two round the step's float
+# sums differently, so a borderline inlier can flip a count and move the
+# later poses: the decisions must be equal on every stream-frame, the
+# counts and pose differences are printed, and each stream's ATE is held to
+# one process's as test_torch_system.py holds the port's to the JAX
+# package's (float sums in another order): at most 1.05x + 0.5 mm
+MS_DECISIONS = ("tracked", "fsm", "is_keyframe", "needs_ba", "kf_slot", "num_keyframes", "kf_overflow")
+MS_ATE_RATIO, MS_ATE_SLACK_M = 1.05, 5e-4
+
+
+def _rank_main(rank, world, backend, init, job, args, out):
+    """One rank of the distributed phase, in a spawned process: join the
+    group on ``cuda:0``, run ``job(group, rank, world, *args)`` and write its
+    JSON result.  A rank that raises fails the phase (and the script)."""
+    import torch
+    import torch.distributed as dist
+
+    from rgbd_visualodometry_tpu_torch.parallel import open_group
+
+    torch.cuda.set_device(0)  # every rank shares the one card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = open_group(backend, init, world, rank)
+    try:
+        result = job(group, rank, world, *args)
+        if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
+            raise AssertionError(f"rank {rank} imported jax")
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out, f"{job.__name__}_{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _replicated_agree(vo) -> bool:
+    """Whether every replicated leaf of the ranks' states is bit-equal: a
+    checksum of their bytes, position-weighted, through an all-reduce MAX
+    and an all-reduce MIN."""
+    import torch
+    import torch.distributed as dist
+
+    from rgbd_visualodometry_tpu_torch.parallel import map_partition_specs
+
+    total = torch.zeros((), dtype=torch.int64, device=vo.device)
+    for name, dim in vars(map_partition_specs()).items():
+        if dim is None:
+            b = getattr(vo.state, name).contiguous().reshape(-1).view(torch.uint8).long()
+            total += torch.sum(b * (torch.arange(b.numel(), device=vo.device) % 65521 + 1))
+    hi, lo = total.clone(), total.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=vo.shard.group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=vo.shard.group)
+    return bool(hi == lo)
+
+
+def _pool_bytes(state) -> int:
+    from rgbd_visualodometry_tpu_torch.parallel import map_partition_specs
+
+    return sum(getattr(state, n).nbytes for n, d in vars(map_partition_specs()).items() if d is not None)
+
+
+def _gloo_job(group, rank, world, frames, ref, ms_dir, ms_ref):
+    """Steps (a)-(c) of the distributed phase on one rank of the gloo group."""
+    import numpy as np
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import VOConfig, kernels
+    from rgbd_visualodometry_tpu_torch.evaltools import ate_rmse
+    from rgbd_visualodometry_tpu_torch.ops import matching
+    from rgbd_visualodometry_tpu_torch.parallel import MultiStreamVO, ShardedMapVO, sharded_match_descriptors
+    from rgbd_visualodometry_tpu_torch.pipeline.frontend import StepOutput
+
+    dev = torch.device("cuda", 0)
+    out = {}
+
+    # (a) the sharded matcher, K2 on each rank's rows, against the plain
+    # version + the gate over the whole pool; K2 on the whole pool too
+    rng = np.random.default_rng(11)
+    C, N = 65536, 500
+    words = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.integers(0, 2**32, shape + (8,), dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+    cand, kp = words(C), words(N)
+    cand[: N // 4] = kp[: N // 4]  # exact copies on the first rank's rows: the global minimum is 0
+    near = kp[N // 4 : N // 2] ^ torch.from_numpy(  # and copies up to 8 bits off on the last rank's rows
+        (1 << rng.integers(0, 32, (N // 4, 8))).astype(np.uint32).view(np.int32) * (rng.random((N // 4, 8)) < 0.8)).to(dev)
+    cand[C - N // 4 :] = near
+    cand_mask = torch.from_numpy(rng.random(C) < 0.9).to(dev)
+    kp_mask = torch.from_numpy(rng.random(N) < 0.95).to(dev)
+    Cw = C // world
+    own = slice(rank * Cw, (rank + 1) * Cw)
+    got = sharded_match_descriptors(group, cand[own].clone(), cand_mask[own].clone(), kp, kp_mask)
+    plain = matching.hamming_nn_reference(cand, kp, kp_mask)
+    want = matching.gate_matches(plain, cand_mask)
+    whole = matching.nearest_keypoints_packed(cand, kp, kp_mask)
+    torch.cuda.synchronize()
+    for key in ("matched", "kp_index", "distance"):
+        if not torch.equal(getattr(got, key), getattr(want, key)[own]):
+            raise AssertionError(f"(a) rank {rank}: sharded {key} differs from the plain version's on the whole pool")
+    if not (torch.equal(whole.kp_index, plain.kp_index) and torch.equal(whole.distance, plain.distance)):
+        raise AssertionError(f"(a) rank {rank}: K2 on the whole pool of {C} rows differs from its plain version")
+    if int(got.min_distance) != int(want.min_distance):
+        raise AssertionError(f"(a) rank {rank}: min_distance {int(got.min_distance)} != {int(want.min_distance)}")
+    if not bool(got.matched.any()):
+        raise AssertionError(f"(a) rank {rank}: no match among its rows")
+    out["a"] = dict(rows=Cw, matched=int(got.matched.sum()), min_distance=int(got.min_distance))
+
+    # (b) ShardedMapVO at the production shape
+    cfg = VOConfig()
+    vo = ShardedMapVO(cfg, group, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    results, step_s, agree = [], [], []
+    for rgb, depth, ts in frames:
+        t0 = time.perf_counter()
+        results.append(vo.process(rgb, depth, ts))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        agree.append(_replicated_agree(vo))
+    counts = kernels.counts()
+    tracked = [r.tracked for r in results]
+    ts_all = [f[2] for f in frames]
+    ate = ate_rmse([r.timestamp for r in results if r.tracked], [r.pose_w_c[4:7] for r in results if r.tracked],
+                   ts_all, ref["gt"])
+    kf, kf_ref = [r.is_keyframe for r in results], ref["is_keyframe"]
+    first = next((i for i, (a, b) in enumerate(zip(kf, kf_ref)) if a != b), None)
+    reason = None
+    if first is not None:
+        dpos = [float(np.linalg.norm(np.asarray(r.pose_w_c[4:7]) - np.asarray(p[4:7])))
+                for r, p in zip(results, ref["pose_w_c"])]
+        reason = (f"frame {first}: sharded is_keyframe={kf[first]}, VisualOdometry {kf_ref[first]}; "
+                  f"inliers {results[first].stats['num_inliers']} vs {ref['inliers'][first]}, the two poses "
+                  f"{1e3 * dpos[first - 1] if first else 0.0:.4f} mm apart the frame before, {1e3 * dpos[first]:.4f} mm "
+                  "at it (float sums of BA and LM on CUDA round differently from run to run)")
+    out["b"] = dict(tracked=sum(tracked), ate=ate, keyframes=sum(kf), first_keyframe_difference=reason,
+                    agree=all(agree), counts=counts, pool_bytes=_pool_bytes(vo.state),
+                    ms_frame=1e3 * statistics.median(step_s[WARMUP_FRAMES:]), ba_dispatches=vo.ba_dispatches)
+    if not all(tracked):
+        raise AssertionError(f"(b) rank {rank}: tracked {sum(tracked)} of {len(frames)} frames")
+    if not all(agree):
+        raise AssertionError(f"(b) rank {rank}: the replicated leaves differ across ranks after frame "
+                             f"{agree.index(False)}")
+    if not (math.isfinite(ate) and ate <= 1.1 * ref["ate"]):
+        raise AssertionError(f"(b) rank {rank}: ATE {ate} m above 1.1x VisualOdometry's {ref['ate']} m")
+    if counts["fast_nms"] != len(frames) or counts["hamming_nn"] != len(frames):
+        raise AssertionError(f"(b) rank {rank}: launches {counts}, expected {len(frames)} each")
+    if 2 * _pool_bytes(vo.state) != ref["pool_bytes"]:
+        raise AssertionError(f"(b) rank {rank}: pool {_pool_bytes(vo.state)} B, not half of {ref['pool_bytes']} B")
+    del vo
+
+    # (c) MultiStreamVO with the streams split over the ranks
+    mcfg = multistream_config()
+    rgb = np.load(os.path.join(ms_dir, "rgb.npy"), mmap_mode="c")  # copy-on-write: writable views
+    depth = np.load(os.path.join(ms_dir, "depth.npy"), mmap_mode="c")
+    stamps = np.load(os.path.join(ms_dir, "stamps.npy"))
+    gt = np.load(os.path.join(ms_dir, "gt.npy"))
+    S, n = rgb.shape[1], rgb.shape[0]
+    ms = MultiStreamVO(mcfg, S, device=dev, group=group)
+    batches = [ms.put_batch(rgb[i], depth[i], stamps[i]) for i in range(n)]  # this rank's streams, staged
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    recs, step_s = [], []
+    for fb in batches:
+        t0 = time.perf_counter()
+        recs.append(ms.step(fb).packed)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    ms.finish()
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    rec = torch.stack(recs).cpu().numpy()
+    f = StepOutput._FIELDS
+    ok = rec[..., f["tracked"]] > 0.5
+    ates = [ate_rmse(stamps[:, s], rec[:, s, 11:14], stamps[:, s], gt[:, s]) for s in range(S)]
+    timed = step_s[MS_WARMUP:]
+    # against step 6's one-process records (the parent checks them, after
+    # printing): the decisions, the counts, the poses T_w_c
+    want = np.load(os.path.join(ms_dir, "records.npy"))
+    cols = [f[k] for k in MS_DECISIONS]
+    dec = np.any(rec[..., cols] != want[..., cols], axis=-1)
+    cnt = {k: float(np.abs(rec[..., j] - want[..., j]).max()) for k, j in f.items() if k not in MS_DECISIONS}
+    cnt_rows = np.any(np.stack([rec[..., j] != want[..., j] for k, j in f.items() if k not in MS_DECISIONS]), axis=0)
+    dot = np.abs(np.sum(rec[..., 7:11].astype(np.float64) * want[..., 7:11], axis=-1))
+    ates_ref = [ate_rmse(stamps[:, s], want[:, s, 11:14], stamps[:, s], gt[:, s]) for s in range(S)]
+    first = None
+    if dec.any():
+        i, st = np.argwhere(dec)[0]
+        first = (f"step {i} stream {st}: " + ", ".join(f"{k} {rec[i, st, f[k]]:g} vs {want[i, st, f[k]]:g}"
+                                                       for k in MS_DECISIONS if rec[i, st, f[k]] != want[i, st, f[k]]))
+    out["c"] = dict(streams=[ms.streams.start, ms.streams.stop], tracked=int(ok.sum()), frames=int(ok.size),
+                    ate_max=max(ates), ates=ates, ates_ref=ates_ref, ba_dispatches=ms.ba_dispatches, counts=counts,
+                    fps=S * len(timed) / sum(timed), ms_step=1e3 * statistics.median(timed),
+                    decisions_differ=int(dec.sum()), first_decision_difference=first,
+                    counts_differ=int(cnt_rows.sum()), count_diff_max=cnt,
+                    dt_max=float(np.abs(rec[..., 11:14] - want[..., 11:14]).max()),
+                    drot_max_deg=float(np.degrees(2 * np.arccos(np.clip(dot, 0, 1))).max()))
+    if not ok.all():
+        raise AssertionError(f"(c) rank {rank}: {int((~ok).sum())} stream-frames not tracked")
+    if not all(math.isfinite(a) for a in ates):
+        raise AssertionError(f"(c) rank {rank}: ATE {ates}")
+    if ms.ba_dispatches != ms_ref["ba_dispatches"]:
+        raise AssertionError(f"(c) rank {rank}: {ms.ba_dispatches} BA dispatches, one process ran "
+                             f"{ms_ref['ba_dispatches']}")
+    if counts["fast_nms"] != n or counts["hamming_nn"] != n:
+        raise AssertionError(f"(c) rank {rank}: launches {counts}, expected {n} each")
+    return out
+
+
+def _nccl_job(group, rank, world, frames):
+    """Step (d): ShardedMapVO on a one-rank NCCL group against
+    VisualOdometry on the same frames."""
+    import numpy as np
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import VOConfig, VisualOdometry, kernels
+    from rgbd_visualodometry_tpu_torch.parallel import ShardedMapVO
+
+    cfg = VOConfig()
+    single = VisualOdometry(cfg, device="cuda")
+    want = [single.process(*f) for f in frames]
+    vo = ShardedMapVO(cfg, group, device="cuda")
+    kernels.reset_counts()
+    got = [vo.process(*f) for f in frames]
+    torch.cuda.synchronize()
+    counts = kernels.counts()
+    dpose = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if (a.tracked, a.fsm, a.is_keyframe, a.stats) != (b.tracked, b.fsm, b.is_keyframe, b.stats):
+            raise AssertionError(f"(d) frame {i}: {a} != {b}")
+        dpose = max(dpose, float(np.abs(a.pose_w_c - b.pose_w_c).max()))
+    if dpose > 1e-5:
+        raise AssertionError(f"(d) poses {dpose} apart, above 1e-5")
+    return dict(frames=len(got), max_pose_diff=dpose, counts=counts, backend=torch.distributed.get_backend(group))
+
+
+def distributed_phase(smi: str, ms_ref: dict) -> dict:
+    """Step 6b: the port's multi-process half on the one card, every rank
+    on ``cuda:0`` (``parallel``: ``ShardedMapVO``,
+    ``sharded_match_descriptors``, ``MultiStreamVO`` with ``group``).  Two
+    ranks of a gloo group with CUDA tensors (NCCL refuses two ranks on one
+    device), spawned: (a) the sharded matcher at C = 65536, N = 500 equal
+    to the plain matcher and the gate over the whole pool; (b) ``ShardedMapVO`` at the
+    JAX dry-run's production shape (``VOConfig()``) over 30 frames, held
+    to ``VisualOdometry``'s run on them here; (c) ``MultiStreamVO`` with
+    the 72 streams of step 6 split 36 and 36, held to step 6's records.  Then
+    (d) one rank of an NCCL group.  Returns each rank's launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from rgbd_visualodometry_tpu_torch import VOConfig, VisualOdometry
+    from rgbd_visualodometry_tpu_torch.evaltools import ate_rmse
+    from rgbd_visualodometry_tpu_torch.io.synthetic import _pose_inverse as pose_inverse
+
+    t_phase = time.perf_counter()
+    cfg = VOConfig()
+    frames = make_frames(cfg, DIST_FRAMES)
+    feed = [(f.rgb, f.depth, f.timestamp) for f in frames]
+    gt = [pose_inverse(f.T_c_w)[4:7].tolist() for f in frames]
+    vo = VisualOdometry(cfg, device="cuda")
+    res = [vo.process(*f) for f in feed]
+    torch.cuda.synchronize()
+    ref = dict(gt=gt, is_keyframe=[r.is_keyframe for r in res], pose_w_c=[r.pose_w_c.tolist() for r in res],
+               inliers=[r.stats["num_inliers"] for r in res], pool_bytes=_pool_bytes(vo.state),
+               ate=ate_rmse([r.timestamp for r in res if r.tracked], [r.pose_w_c[4:7] for r in res if r.tracked],
+                            [f.timestamp for f in frames], gt))
+    if not all(r.tracked for r in res):
+        raise AssertionError("distributed: VisualOdometry did not track every frame")
+    del vo
+    torch.cuda.empty_cache()
+    print(f"distributed: VisualOdometry on the card, VOConfig() (640x480, 500 features, 65536 map points, "
+          f"512 keyframes, local BA): {len(res)}/{len(res)} tracked, ATE {100 * ref['ate']:.3f} cm, "
+          f"{sum(ref['is_keyframe'])} keyframes, pool {ref['pool_bytes']} B")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seqs, n = ms_ref["seqs"], ms_ref["steps"]
+        S = len(seqs)
+        h, w = seqs[0][1].shape[1:3]
+        rgb = np.lib.format.open_memmap(os.path.join(tmp, "rgb.npy"), "w+", np.uint8, (n, S, h, w, 3))
+        depth = np.lib.format.open_memmap(os.path.join(tmp, "depth.npy"), "w+", seqs[0][1].dtype, (n, S, h, w))
+        for s, q in enumerate(seqs):
+            rgb[:, s], depth[:, s] = q[0][:n], q[1][:n]
+        rgb.flush()
+        depth.flush()
+        del rgb, depth
+        np.save(os.path.join(tmp, "stamps.npy"), np.stack([q[2][:n] for q in seqs], axis=1))
+        np.save(os.path.join(tmp, "gt.npy"), np.stack([q[3][:n] for q in seqs], axis=1))
+        np.save(os.path.join(tmp, "records.npy"), ms_ref["records"])
+        small_ref = {k: v for k, v in ms_ref.items() if k not in ("seqs", "records")}
+        t0 = time.perf_counter()
+        mp.start_processes(_rank_main, args=(2, "gloo", f"file://{tmp}/gloo", _gloo_job, (feed, ref, tmp, small_ref),
+                                             tmp), nprocs=2, start_method="spawn")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"_gloo_job_{r}.json")) as f:
+                ranks.append(json.load(f))
+        gloo_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mp.start_processes(_rank_main, args=(1, "nccl", f"file://{tmp}/nccl", _nccl_job, (feed[:NCCL_FRAMES],), tmp),
+                           nprocs=1, start_method="spawn")
+        with open(os.path.join(tmp, "_nccl_job_0.json")) as f:
+            nccl = json.load(f)
+        nccl_s = time.perf_counter() - t0
+
+    a, b, c = ([r[k] for r in ranks] for k in ("a", "b", "c"))
+    print(f"distributed (a): sharded_match_descriptors at C=65536 ({a[0]['rows']} rows a rank), N=500 over gloo "
+          f"with CUDA tensors: exactly the plain matcher + gate_matches over the whole pool on both ranks, and K2 "
+          f"on the whole pool exactly its plain version "
+          f"(min distance {a[0]['min_distance']}, {a[0]['matched']} + {a[1]['matched']} matched)")
+    for r, x in enumerate(b):
+        print(f"distributed (b) rank {r}: ShardedMapVO(VOConfig()) {x['tracked']}/{DIST_FRAMES} tracked, ATE "
+              f"{100 * x['ate']:.3f} cm ({x['ate'] / ref['ate']:.3f}x VisualOdometry's), {x['keyframes']} keyframes, "
+              f"{x['ba_dispatches']} BA, replicated leaves equal across ranks after every frame: {x['agree']}, "
+              f"launches {x['counts']}, pool {x['pool_bytes']} B (VisualOdometry {ref['pool_bytes']} B)")
+        print(f"distributed (b) rank {r}: keyframe decisions "
+              + ("equal to VisualOdometry's on every frame" if x["first_keyframe_difference"] is None
+                 else f"first differ at {x['first_keyframe_difference']}"))
+        print(f"distributed (b) rank {r}: {x['ms_frame']:.2f} ms/frame median over frames {WARMUP_FRAMES}-"
+              f"{DIST_FRAMES - 1} ({SHARE_NOTE}; {smi})")
+    for r, x in enumerate(c):
+        print(f"distributed (c) rank {r}: MultiStreamVO streams {x['streams'][0]}-{x['streams'][1] - 1} of 72, "
+              f"{x['tracked']}/{x['frames']} stream-frames tracked, ATE max {100 * x['ate_max']:.3f} cm (one process "
+              f"{100 * ms_ref['ate_max']:.3f} cm), {x['ba_dispatches']} BA dispatches (one process "
+              f"{ms_ref['ba_dispatches']}), launches {x['counts']}")
+        print(f"distributed (c) rank {r}: the whole [72, 32] records against one process's: decisions "
+              f"({', '.join(MS_DECISIONS)}) differ on {x['decisions_differ']} of {x['frames']} stream-frames"
+              + (f" (first at {x['first_decision_difference']})" if x["first_decision_difference"] else "")
+              + f"; counts on {x['counts_differ']} (largest differences "
+              f"{ {k: v for k, v in x['count_diff_max'].items() if v} }); poses {1e3 * x['dt_max']:.4f} mm and "
+              f"{x['drot_max_deg']:.4f} deg apart at most; each stream's ATE against one process's: largest "
+              f"ratio {max(a / b for a, b in zip(x['ates'], x['ates_ref'])):.4f}, largest difference "
+              f"{1e3 * max(a - b for a, b in zip(x['ates'], x['ates_ref'])):.4f} mm")
+        print(f"distributed (c) rank {r}: {x['fps']:.2f} stream-frames/s over steps {MS_WARMUP}-{ms_ref['steps'] - 1}, "
+              f"{x['ms_step']:.2f} ms/step median ({SHARE_NOTE}; {smi})")
+    for r, x in enumerate(c):
+        if x["decisions_differ"]:
+            raise AssertionError(f"distributed (c) rank {r}: decisions differ from one process's on "
+                                 f"{x['decisions_differ']} stream-frames, first at {x['first_decision_difference']}")
+        worse = [(s, a, b) for s, (a, b) in enumerate(zip(x["ates"], x["ates_ref"]))
+                 if a > MS_ATE_RATIO * b + MS_ATE_SLACK_M]
+        if worse or x["ate_max"] > MS_ATE_RATIO * ms_ref["ate_max"] + MS_ATE_SLACK_M:
+            raise AssertionError(f"distributed (c) rank {r}: ATE max {x['ate_max']} m (one process "
+                                 f"{ms_ref['ate_max']} m); streams above {MS_ATE_RATIO}x one process's + "
+                                 f"{MS_ATE_SLACK_M} m: {worse}")
+    print(f"distributed (d): ShardedMapVO on a one-rank {nccl['backend']} group, {nccl['frames']} frames: discrete "
+          f"outputs equal to VisualOdometry's, poses within {nccl['max_pose_diff']:.3g}, launches {nccl['counts']}")
+    print(f"distributed: gloo ranks {gloo_s:.1f} s, NCCL rank {nccl_s:.1f} s, phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(sharded=[x["counts"] for x in b], multistream=[x["counts"] for x in c], nccl=nccl["counts"])
 
 
 def profile_phase(label, unit, step, timed, profiled, dispatches, extra=()):
@@ -1423,7 +1805,10 @@ def main() -> int:
     del circuit, depths
     cli_counts = cli_phase(dev)
     profiling = "--profile" in sys.argv[1:]
-    time_batched, profile_batched = multistream_phase(multistream_config(), dev, profile_steps=3 if profiling else 0)
+    time_batched, profile_batched, ms_ref = multistream_phase(multistream_config(), dev,
+                                                              profile_steps=3 if profiling else 0)
+    dist_counts = distributed_phase(smi, ms_ref)
+    del ms_ref
     # torch.profiler may slow the host's later launches: the stage timers
     # first, then the kernels' CUDA events, then their profiler timings,
     # then the profiler's traces of whole steps
@@ -1451,6 +1836,11 @@ def main() -> int:
             e["multistream"] = batched[e["name"]]
             e["loop_closure_launches"] = {mode: c[e["name"]] for mode, c in loop_counts.items()}
             e["cli_launches"] = {run: c[e["name"]] for run, c in cli_counts.items()}
+            e["distributed_launches"] = {
+                "sharded_map_per_rank": [c[e["name"]] for c in dist_counts["sharded"]],
+                "multistream_per_rank": [c[e["name"]] for c in dist_counts["multistream"]],
+                "nccl_sharded_map": dist_counts["nccl"][e["name"]],
+            }
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

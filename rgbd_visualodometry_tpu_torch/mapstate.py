@@ -25,7 +25,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from rgbd_visualodometry_tpu_torch import random as vo_random
-from rgbd_visualodometry_tpu_torch.ops import packing, se3
+from rgbd_visualodometry_tpu_torch.ops import se3
+from rgbd_visualodometry_tpu_torch.ops import collectives
 
 # FSM codes (frontend.h:26-30)
 INITIALIZING = 0
@@ -220,20 +221,22 @@ def incidence_from_obs(state: VOState) -> torch.Tensor:
     return A[: K * C].reshape(K, C)
 
 
-def tracking_map_mask(state: VOState, cfg) -> torch.Tensor:
+def tracking_map_mask(state: VOState, cfg, shard=None) -> torch.Tensor:
     """``[C]`` bool: non-outlier mappoints observed by the reference keyframe
     or its active covisible keyframes (``src/frontend.cpp:156-166``,
     ``src/mapmanager.cpp:14-38``); the whole alive map below
-    ``tracking_map_min_points``.  Counts are exact in float32."""
+    ``tracking_map_min_points``.  Counts are exact in float32.  On a pool
+    split over ranks (``shard``) the co-observation weights and the count
+    are summed over the ranks' blocks."""
     A = state.A_inc.float()
     K = A.shape[0]
     ref = state.ref_kf.long()
-    weights = A @ A[ref]  # [K] shared observations with ref_kf
+    weights = collectives.pool_sum(shard, A @ A[ref])  # [K] shared observations with ref_kf
     kfs = ((weights >= cfg.covisibility_weight_threshold) | (torch.arange(K, device=A.device) == ref))
     kfs = kfs & state.kf_valid
     observed = (kfs.float() @ A) > 0
     local = observed & state.mp_alive
-    enough = torch.sum(local) >= cfg.tracking_map_min_points
+    enough = collectives.pool_sum(shard, torch.sum(local)) >= cfg.tracking_map_min_points
     return torch.where(enough, local, state.mp_alive)
 
 
@@ -308,21 +311,23 @@ def add_observations(state: VOState, kf_slot, mp_mask, uv, cam_center, pred, dep
     )
 
 
-def create_mappoints(state: VOState, kf_slot, positions, desc, uv, create_mask, cam_center, pred, depth):
+def create_mappoints(state: VOState, kf_slot, positions, desc, uv, create_mask, cam_center, pred, depth, shard=None):
     """``FrontEnd::CreateNewMappoints`` (``src/frontend.cpp:372-406``): the
     rank-th created point takes the rank-th free slot (outlier slots are
     recycled) with the creating keyframe as first observer.  Returns
-    ``(state, n_created)``; requests past the free supply are dropped."""
+    ``(state, n_created)``; requests past the free supply are dropped.  On a
+    pool split over ranks (``shard``) the free slots are the whole pool's,
+    and each rank writes the ones it holds."""
     C, M = state.obs_kf.shape
     N = positions.shape[0]
     create_mask = create_mask & pred
     free_mask = ~state.mp_valid | state.mp_outlier
     rank = (torch.cumsum(create_mask.to(torch.int64), 0) - 1).clamp(0, N - 1)
-    free_idx, free_ok = packing.compact_indices(free_mask, N)
+    free_idx, free_ok = collectives.pool_compact_indices(shard, free_mask, N)
     slot = free_idx[rank]
     ok = create_mask & free_ok[rank]
     d = _normalize_rows(positions - cam_center[None, :])
-    hit, inv = packing.inverse_lookup(C, slot, ok)
+    hit, inv = collectives.pool_local_mask(shard, C, slot, ok)
     first_col = torch.arange(M, device=hit.device) == 0
     h1 = hit[:, None]
     return state.replace(
@@ -339,6 +344,25 @@ def create_mappoints(state: VOState, kf_slot, positions, desc, uv, create_mask, 
         obs_valid=torch.where(h1, first_col[None, :], state.obs_valid),
         A_inc=_add_incidence(state.A_inc, kf_slot, hit),
     ), torch.sum(ok)
+
+
+def remove_observations(state: VOState, rm_mask) -> VOState:
+    """``Frame::RemoveObservedMappoint`` + outlier marking
+    (``src/frame.cpp:123-154``, ``src/mappoint.cpp:39-49``) over the whole
+    pool: clear the ``rm_mask [C, M]`` observation slots; a mappoint left
+    with no observation becomes an outlier (its slot recyclable).
+    :func:`remove_observations_rows` does the same for a compact set of
+    rows (BA's write-back)."""
+    K = state.A_inc.shape[0]
+    C, M = state.obs_kf.shape
+    obs_valid = state.obs_valid & ~rm_mask
+    mp_outlier = state.mp_outlier | (state.mp_valid & ~torch.any(obs_valid, dim=1))
+    # (keyframe, mappoint) pairs are unique, so each removed observation
+    # clears its own incidence entry
+    rows = torch.where(rm_mask & state.obs_valid, state.obs_kf.clamp(0, K - 1).long(), K)
+    A_inc = with_spare(state.A_inc)
+    A_inc[rows, torch.arange(C, device=rows.device)[:, None].expand(-1, M)] = 0
+    return state.replace(obs_valid=obs_valid, mp_outlier=mp_outlier, A_inc=A_inc[:K])
 
 
 def remove_observations_rows(state: VOState, pidx, pval, prune) -> VOState:

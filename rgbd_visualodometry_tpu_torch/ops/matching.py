@@ -27,6 +27,7 @@ import torch
 
 from rgbd_visualodometry_tpu_torch import kernels
 from rgbd_visualodometry_tpu_torch.ops.orb import unpack_bits
+from rgbd_visualodometry_tpu_torch.ops import collectives
 
 BIG = 1 << 20
 
@@ -163,11 +164,14 @@ def gate_matches(
     cand_mask: torch.Tensor,
     match_ratio: float = 2.0,
     min_match_distance: float = 30.0,
+    shard=None,
 ) -> MatchResult:
     """Keep a candidate iff ``dist <= max(min_dist * match_ratio, 30)``
-    (``src/frontend.cpp:190-211``)."""
+    (``src/frontend.cpp:190-211``).  On a pool split over ranks
+    (``shard``, a :class:`collectives.MapShard`) ``min_dist`` is the minimum
+    over every rank's rows (``lax.pmin``)."""
     row_ok = cand_mask & (nn.distance < BIG)
-    min_dis = torch.min(torch.where(row_ok, nn.distance, torch.full_like(nn.distance, BIG)))
+    min_dis = collectives.pool_min(shard, torch.min(torch.where(row_ok, nn.distance, torch.full_like(nn.distance, BIG))))
     max_dis = torch.clamp_min(min_dis.float() * match_ratio, min_match_distance)
     matched = row_ok & (nn.distance.float() <= max_dis)
     return MatchResult(matched=matched, kp_index=nn.kp_index, distance=nn.distance, min_distance=min_dis)

@@ -1,7 +1,11 @@
-"""S independent RGB-D streams tracked as one batched step on one device.
+"""Streams and the map over one device or the ranks of a process group.
 
-Counterpart of ``MultiStreamVO`` in ``rgbd_visualodometry_tpu/parallel/
-mesh.py:49-215`` on a single device.  The per-stream state gets a leading
+Counterpart of ``rgbd_visualodometry_tpu/parallel/mesh.py``.  A
+``torch.distributed`` process group (:func:`open_group`) takes the place of
+the JAX device mesh, and ``ops.collectives`` the place of the
+collectives XLA inserts.
+
+**MultiStreamVO** (``mesh.py:49-215``) on one device: the per-stream state gets a leading
 stream axis (:func:`mapstate.stack_states`) and the single-stream step runs
 under ``torch.func.vmap``, as the JAX package ``vmap``s it: every tensor op
 of the step is issued once for all streams, and kernels K1 (``fast_nms``)
@@ -16,29 +20,59 @@ The host reads each step's ``[S, 32]`` record once, three steps late, and
 dispatches BA when a stream inserted a keyframe, at most once every
 ``ba_min_frame_gap`` steps for the whole batch.
 
-A device mesh has no single-card meaning: there is no ``make_mesh`` and no
-``mesh`` argument.  Streams over several cards, ``ShardedMapVO`` and the
-sharded matcher are not ported (ROADMAP item 12b).
+With ``group``, rank ``r`` of ``W`` owns streams ``[r S / W, (r + 1) S / W)``
+(``mesh.py:90-104``): it holds only their states and runs the same batched
+step on them.  ``step`` still takes the whole ``[S, ...]`` batch and returns
+the whole ``[S, 32]`` record (one all-reduce), so the BA dispatch decision
+reads every rank's streams and ``ba_dispatches`` and every stream's result
+are those of one process running all S.
+
+**ShardedMapVO** (``mesh.py:238-284``): one stream whose map-point pool is
+split over the ranks: rank ``r`` holds the contiguous block
+``[r C / W, (r + 1) C / W)`` of every pool leaf (:func:`map_partition_specs`)
+and a replica of the rest.  The step is the single-stream step with the
+rank's :class:`collectives.MapShard`; kernel K2 runs on the local
+``[C / W, 8]`` rows.  **sharded_match_descriptors** (``mesh.py:287-331``)
+is its matcher on its own.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import functools
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 from rgbd_visualodometry_tpu_torch import mapstate
 from rgbd_visualodometry_tpu_torch import random as vo_random
 from rgbd_visualodometry_tpu_torch.camera import Camera
+from rgbd_visualodometry_tpu_torch.ops import matching
+from rgbd_visualodometry_tpu_torch.ops import collectives
 from rgbd_visualodometry_tpu_torch.pipeline import backend
 from rgbd_visualodometry_tpu_torch.pipeline import frontend as frontend_mod
-from rgbd_visualodometry_tpu_torch.pipeline.system import open_device
+from rgbd_visualodometry_tpu_torch.pipeline import globalopt
+from rgbd_visualodometry_tpu_torch.pipeline.system import VisualOdometry, open_device
 
 BA_LAG = 3  # steps between a record and the host's read of it (mesh.py:116)
+
+
+def open_group(backend_name: str, init_method: str, world_size: int, rank: int):
+    """Join a ``torch.distributed`` process group and return it: the port's
+    stand-in for ``make_mesh``.  ``backend_name`` is ``"gloo"`` (CPU or
+    CUDA tensors) or ``"nccl"`` (CUDA tensors, one device per rank);
+    ``init_method`` a ``tcp://host:port`` or ``file://path`` address.
+    Raises where the backend is not available; it changes neither the
+    backend nor the current device (with NCCL, the caller selects each
+    rank's device first)."""
+    if not dist.is_available() or not dist.is_backend_available(backend_name):
+        raise RuntimeError(f"torch.distributed backend {backend_name!r} is not available")
+    dist.init_process_group(backend_name, init_method=init_method, world_size=world_size, rank=rank)
+    return dist.group.WORLD
 
 
 class MultiStreamVO:
@@ -50,20 +84,27 @@ class MultiStreamVO:
         vo.finish()
 
     Stream ``s`` starts from ``init_state`` with the key
-    ``fold_in(PRNGKey(seed), s)``.
+    ``fold_in(PRNGKey(seed), s)``.  With ``group`` (:func:`open_group`), this
+    rank tracks streams ``streams.start`` to ``streams.stop - 1``; every rank
+    calls ``step`` with the whole batch.
     """
 
-    def __init__(self, cfg, n_streams: int, device="cuda", seed: int = 0):
+    def __init__(self, cfg, n_streams: int, device="cuda", seed: int = 0, group=None):
         if n_streams < 1:
             raise ValueError(f"n_streams must be >= 1, got {n_streams}")
         self.device = open_device(device)
         self.cfg = cfg
         self.n_streams = n_streams
         self.camera = Camera.from_config(cfg)
+        if group is None:
+            self.shard, self.streams = None, range(n_streams)
+        else:
+            self.shard = collectives.MapShard.of(group, n_streams, self.device)
+            self.streams = range(self.shard.offset, self.shard.offset + self.shard.local_size)
         base = vo_random.PRNGKey(seed, self.device)
         self.states = mapstate.stack_states([
             mapstate.init_state(cfg, 0, self.device).replace(rng=vo_random.fold_in(base, s))
-            for s in range(n_streams)
+            for s in self.streams
         ])
         self._compute = torch.func.vmap(functools.partial(frontend_mod.track_compute, cfg, self.camera))
         self._update = torch.func.vmap(functools.partial(_apply_updates_packed, cfg, self.camera))
@@ -76,23 +117,28 @@ class MultiStreamVO:
         self.ba_dispatches = 0  # batched BA solves run
 
     def put_batch(self, rgb: np.ndarray, depth: np.ndarray, timestamps) -> frontend_mod.FrameInput:
-        """Stage one ``[S, ...]`` frame batch on the device; the staged
-        timestamps are offsets from each stream's first staged stamp."""
+        """Stage one ``[S, ...]`` frame batch on the device (this rank's
+        streams of it); the staged timestamps are offsets from each stream's
+        first staged stamp."""
         ts = np.asarray(timestamps, np.float64)
         if ts.shape != (self.n_streams,):
             raise ValueError(f"expected {self.n_streams} timestamps, got shape {ts.shape}")
         if self.time_base is None:
             self.time_base = ts
-        return frontend_mod.frame_input(rgb, depth, ts - self.time_base, self.device)
+        own = slice(self.streams.start, self.streams.stop)
+        return frontend_mod.frame_input(rgb[own], depth[own], (ts - self.time_base)[own], self.device)
 
     def step(self, rgb, depth=None, timestamps=None) -> frontend_mod.StepOutput:
         """One tracking step for all streams: numpy ``rgb [S, H, W, 3]``,
         ``depth [S, H, W]``, ``timestamps [S]``, or a staged
         :class:`FrameInput` from :meth:`put_batch`.  Returns the batched
-        :class:`StepOutput` (``packed [S, 32]``)."""
+        :class:`StepOutput` (``packed [S, 32]``), every rank's streams."""
         frames = rgb if isinstance(rgb, frontend_mod.FrameInput) else self.put_batch(rgb, depth, timestamps)
         inter = self._compute(self.states, frames)
         self.states, packed = self._update(self.states, inter)
+        if self.shard is not None:
+            (packed,) = collectives.all_gather_blocks(self.shard, packed)
+            packed = packed.reshape(self.n_streams, -1)
         out = frontend_mod.StepOutput(packed=packed)
         if self.enable_backend:
             self._ba_pending.append(_HostRecord(out.packed))
@@ -103,15 +149,18 @@ class MultiStreamVO:
         """Read the lagged records (one host copy of ``[S, 32]`` each, no
         other leaf) and dispatch the masked BA when a stream inserted a
         keyframe and the last dispatch is more than ``ba_min_frame_gap``
-        steps back (the reference backend's coalescing, backend.cpp:8-17)."""
+        steps back (the reference backend's coalescing, backend.cpp:8-17).
+        Every rank reads the whole record, so all decide alike; each solves
+        its own streams."""
         f = frontend_mod.StepOutput._FIELDS
+        own = slice(self.streams.start, self.streams.stop)
         while len(self._ba_pending) > keep_lag:
             o = self._ba_pending.popleft().numpy()
             needs = o[:, f["needs_ba"]] > 0.5
             self._frames_since_ba += 1
             if needs.any() and self._frames_since_ba > self.cfg.ba_min_frame_gap:
-                kf = torch.from_numpy(o[:, f["kf_slot"]].astype(np.int64)).to(self.device)
-                self.states = self._ba(self.states, kf, torch.from_numpy(needs).to(self.device))
+                kf = torch.from_numpy(o[own, f["kf_slot"]].astype(np.int64)).to(self.device)
+                self.states = self._ba(self.states, kf, torch.from_numpy(needs[own]).to(self.device))
                 self._frames_since_ba = 0
                 self.ba_dispatches += 1
 
@@ -121,7 +170,8 @@ class MultiStreamVO:
             self._drain_ba(0)
 
     def aggregate_metrics(self, out: frontend_mod.StepOutput) -> dict:
-        """Counters reduced over the streams of one step's output."""
+        """Counters reduced over the streams of one step's output (every
+        rank's: ``step`` returns the whole record)."""
         return dict(
             tracked_fraction=float(out.tracked.float().mean()),
             mean_inliers=float(out.num_inliers.float().mean()),
@@ -161,3 +211,130 @@ class _HostRecord:
         if self._done is not None:
             self._done.synchronize()
         return self._host.numpy()
+
+
+# ---------------------------------------------------------------------------
+# the map-point pool split over the ranks of a group
+# ---------------------------------------------------------------------------
+
+
+def map_partition_specs() -> mapstate.VOState:
+    """For each ``VOState`` leaf, the dimension split over the ranks in the
+    port's C-major layout, or None for a leaf every rank holds whole
+    (``mesh.py:218-235``): dim 0 of every ``mp_*`` and ``obs_*`` pool, dim 1
+    of the incidence matrix ``A_inc [K, C]``."""
+    return mapstate.VOState(**{
+        f.name: 1 if f.name == "A_inc" else 0 if f.name.startswith(("mp_", "obs_")) else None
+        for f in dataclasses.fields(mapstate.VOState)
+    })
+
+
+def _split_leaves():
+    specs = map_partition_specs()
+    return [(f.name, getattr(specs, f.name)) for f in dataclasses.fields(specs) if getattr(specs, f.name) is not None]
+
+
+def shard_state(state: mapstate.VOState, shard: collectives.MapShard) -> mapstate.VOState:
+    """A whole state (a loaded checkpoint) -> this rank's: its block of
+    every split leaf (copied, so the whole pool can be freed), the other
+    leaves as they are.  Raises unless the state holds ``shard.size`` map
+    points."""
+    if state.mp_pos.shape[0] != shard.size:
+        raise ValueError(f"the state holds {state.mp_pos.shape[0]} map points, the shards {shard.size}")
+    return state.replace(**{n: getattr(state, n).narrow(d, shard.offset, shard.local_size).clone()
+                            for n, d in _split_leaves()})
+
+
+def gather_state(state: mapstate.VOState, shard: collectives.MapShard) -> mapstate.VOState:
+    """The ranks' states -> the whole state, on every rank (one all-reduce)."""
+    names = _split_leaves()
+    blocks = collectives.all_gather_blocks(shard, *(getattr(state, n) for n, _ in names))
+    return state.replace(**{n: torch.cat(list(b.unbind(0)), dim=d) for (n, d), b in zip(names, blocks)})
+
+
+class _SilentViewer:
+    """The viewer of ranks other than 0: called where rank 0's is (the map
+    snapshot it is handed is a collective), writing nothing."""
+
+    def render_overlay(self, *args, **kwargs):
+        return None
+
+    maybe_render_map = export_html = render_overlay
+
+
+class ShardedMapVO(VisualOdometry):
+    """One stream whose map-point pool is split over the ranks of ``group``
+    (``mesh.py:238-284``)::
+
+        group = open_group("nccl", "tcp://host:port", world_size, rank)
+        vo = ShardedMapVO(cfg, group, device=f"cuda:{local_rank}")
+        for rgb, depth, t in frames:  # every rank, the same frames
+            res = vo.process(rgb, depth, t)
+
+    Every rank computes the replicated work (ORB, RANSAC, LM, BA's solve)
+    and holds the keyframes, the FSM and the key whole.  The reductions over
+    the pool are collectives (``ops.collectives``), and before a rank
+    writes its block it takes rank 0's decisions (the replicated fields of
+    ``TrackInter``, BA's solution and prune mask): one broadcast per frame
+    and one per BA, so CUDA's run-to-run rounding cannot set ranks apart.
+    The whole-map readers (``map_snapshot``, ``global_relax``, the online
+    relaxations) gather the pool first (``whole_state``, a collective);
+    rank 0 alone computes a relaxation, and each rank deforms its own block
+    with it.  A checkpoint is ``io.checkpoint.save_state(vo.whole_state(),
+    ...)`` written by one rank, and ``vo.state = shard_state(state,
+    vo.shard)`` resumes from one.  Give ``run`` its output paths on one
+    rank only.
+    """
+
+    def __init__(self, cfg, group, device="cuda", seed: int = 0):
+        world = dist.get_world_size(group)
+        if cfg.max_mappoints % world:
+            raise ValueError(f"max_mappoints={cfg.max_mappoints} must divide evenly over {world} ranks")
+        super().__init__(cfg, seed=seed, device=device)
+        self.shard = collectives.MapShard.of(group, cfg.max_mappoints, self.device)
+        self.state = shard_state(self.state, self.shard)
+        if self._viewer is not None and self.shard.rank != 0:
+            self._viewer = _SilentViewer()
+
+    def whole_state(self) -> mapstate.VOState:
+        return gather_state(self.state, self.shard)
+
+    def _agree(self, compute) -> Optional[globalopt.Relaxation]:
+        if self.shard.rank != 0:
+            got = collectives.broadcast_object(self.shard, None)
+            if isinstance(got, str):
+                raise RuntimeError(f"the relaxation failed on rank 0: {got}")
+            return _relaxation_to(got, self.device)
+        try:
+            rlx = compute()
+        except BaseException as e:  # release the other ranks, which raise too
+            collectives.broadcast_object(self.shard, f"{type(e).__name__}: {e}")
+            raise
+        collectives.broadcast_object(self.shard, _relaxation_to(rlx, "cpu"))
+        return rlx
+
+    def _relax_done(self, thread) -> bool:
+        done = torch.tensor(int(not thread.is_alive()), device=self.device)
+        return bool(collectives.pool_min(self.shard, done))
+
+
+def _relaxation_to(rlx: Optional[globalopt.Relaxation], device) -> Optional[globalopt.Relaxation]:
+    if rlx is None:
+        return None
+    return dataclasses.replace(rlx, **{n: getattr(rlx, n).to(device)
+                                       for n in ("delta_w", "snap_valid", "snap_ts", "ref_delta_w")})
+
+
+def sharded_match_descriptors(group, cand_desc: torch.Tensor, cand_mask: torch.Tensor, kp_desc: torch.Tensor,
+                              kp_mask: torch.Tensor, match_ratio: float = 2.0,
+                              min_match_distance: float = 30.0) -> matching.MatchResult:
+    """Exact Hamming matching against a pool split over the ranks of
+    ``group`` (``mesh.py:287-331``): this rank's packed rows
+    ``cand_desc [C / W, 8]`` int32 and ``cand_mask [C / W]``, every rank's
+    keypoints ``kp_desc [N, 8]``, ``kp_mask [N]``.  Kernel K2 on the local
+    rows, then one all-reduce MIN for the global minimum distance: returns
+    this rank's rows of the ``MatchResult`` with the global
+    ``min_distance``."""
+    shard = collectives.MapShard.of(group, cand_desc.shape[0] * dist.get_world_size(group), cand_desc.device)
+    nn = matching.nearest_keypoints_packed(cand_desc, kp_desc, kp_mask)
+    return matching.gate_matches(nn, cand_mask, match_ratio, min_match_distance, shard=shard)

@@ -26,6 +26,12 @@ result directly:
   matrix that is not positive definite (``info > 0``) the step is rejected,
   as the NaN factor of ``jnp.linalg.cholesky`` rejects it in the reference.
 
+With ``shard`` (a ``ops.collectives.MapShard``) the state holds one
+rank's block of the map-point pool: the window's co-observation sums, the
+point selection and the point rows go through ``ops.collectives``,
+every rank solves the same problem, and the ranks take rank 0's solution
+and prune mask before each writes the points it holds.
+
 ``ba_bf16`` casts the per-edge Jacobians and weights to bfloat16 at the
 reference's points (``backend.py:271-275``) and sums the outer products in
 float32.  bf16 rounds at other places in torch than in XLA, so the two agree
@@ -44,6 +50,7 @@ from rgbd_visualodometry_tpu_torch.mapstate import VOState
 from rgbd_visualodometry_tpu_torch.ops import lm as lm_ops
 from rgbd_visualodometry_tpu_torch.ops import packing, se3
 from rgbd_visualodometry_tpu_torch.ops.smalleig import inv3x3
+from rgbd_visualodometry_tpu_torch.ops import collectives
 
 _INT32_MAX = 2**31 - 1
 
@@ -65,9 +72,9 @@ class BAProblem(NamedTuple):
     fixed_poses: torch.Tensor  # [MB, M, 7] observer poses from the map
 
 
-def build_problem(cfg, state: VOState, kf) -> BAProblem:
+def build_problem(cfg, state: VOState, kf, shard=None) -> BAProblem:
     """The window, the points and their observations for keyframe ``kf``
-    (an int or a 0-d integer tensor)."""
+    (an int or a 0-d integer tensor); ``pidx`` holds global slots."""
     K = state.kf_pose.shape[0]
     M = state.obs_kf.shape[1]
     P, MB = min(cfg.ba_max_poses, K), cfg.ba_max_points
@@ -77,7 +84,7 @@ def build_problem(cfg, state: VOState, kf) -> BAProblem:
 
     A = mapstate.incidence(state).float()  # counts stay exact in float32
     A_kf = A.index_select(0, kf.reshape(1))[0]
-    row = A @ A_kf  # [K] shared observations with kf
+    row = collectives.pool_sum(shard, A @ A_kf)  # [K] shared observations with kf
     in_window = ((row >= cfg.covisibility_weight_threshold) | is_kf) & state.kf_valid
     weight = torch.where(in_window, row.long() + 1, -1)
     weight = torch.where(is_kf, torch.where(state.kf_valid, _INT32_MAX, -1), weight)
@@ -93,16 +100,18 @@ def build_problem(cfg, state: VOState, kf) -> BAProblem:
     pmask = ((win_kf[:K].float() @ A) > 0) & state.mp_alive
     n_obs = torch.sum(state.obs_valid, dim=1).clamp_max(M)
     score = (1 - A_kf.long()) * (M + 1) + (M - n_obs)
-    pidx, pval = packing.compact_best_indices(pmask, score, MB)
+    pidx, pval = collectives.pool_compact_best_indices(shard, pmask, score, MB)
 
-    o_kf = state.obs_kf[pidx].clamp(0, K - 1).long()  # [MB, M]
-    o_valid = state.obs_valid[pidx] & pval[:, None]
+    o_kf, o_valid, o_uv, o_depth = collectives.pool_rows(
+        shard, pidx, state.obs_kf, state.obs_valid, state.obs_uv, state.obs_depth)  # [MB, M]
+    o_kf = o_kf.clamp(0, K - 1).long()
+    o_valid = o_valid & pval[:, None]
     o_wpos = wpos[o_kf]
     o_in_window = (o_wpos >= 0) & o_valid
     o_pose_free = o_in_window & ~wfixed[o_wpos.clamp_min(0)]
     return BAProblem(
         widx=widx, wval=wval, wfixed=wfixed, pidx=pidx, pval=pval,
-        o_uv=state.obs_uv[pidx], o_depth=state.obs_depth[pidx], o_valid=o_valid,
+        o_uv=o_uv, o_depth=o_depth, o_valid=o_valid,
         o_pose_free=o_pose_free, o_wpos=torch.where(o_pose_free, o_wpos, P),
         fixed_poses=state.kf_pose[o_kf],
     )
@@ -264,15 +273,15 @@ class BAOutput(NamedTuple):
     num_poses: torch.Tensor
 
 
-def ba_step(cfg, camera, state: VOState, kf):
+def ba_step(cfg, camera, state: VOState, kf, shard=None):
     """Two-round local BA on keyframe ``kf`` (an int or a 0-d integer
     tensor); returns ``(state, BAOutput)``.  A masked no-op when the window
     or the point set is empty."""
     K = state.kf_pose.shape[0]
     C = state.obs_kf.shape[0]
-    prob = build_problem(cfg, state, kf)
+    prob = build_problem(cfg, state, kf, shard)
     poses0 = state.kf_pose[prob.widx]
-    pts0 = state.mp_pos[prob.pidx]
+    (pts0,) = collectives.pool_rows(shard, prob.pidx, state.mp_pos)
 
     # round 1: robust kernel on all edges (backend.cpp:122-141)
     poses1, pts1 = _lm_phase(cfg, camera, prob, poses0, pts0, prob.o_valid, cfg.ba_iterations, cfg.huber_delta)
@@ -282,18 +291,20 @@ def ba_step(cfg, camera, state: VOState, kf):
     poses2, pts2 = _lm_phase(cfg, camera, prob, poses1, pts1, mask2, cfg.ba_iterations, None)
     prune2 = mask2 & (_chi2(prob, poses2, pts2, camera) > cfg.chi2_th)
     pruned = prune1 | prune2
+    poses2, pts2, pruned = collectives.broadcast_tensors(shard, poses2, pts2, pruned)
 
     # write back: non-fixed window poses; selected non-outlier points and
-    # their optimized_ flag (backend.cpp:182-194)
+    # their optimized_ flag (backend.cpp:182-194), each rank its own points
     kf_pose = mapstate.with_spare(state.kf_pose)
     kf_pose[torch.where(prob.wval & ~prob.wfixed, prob.widx, K)] = poses2
-    ptgt = torch.where(prob.pval & ~state.mp_outlier[prob.pidx], prob.pidx, C)
+    pidx, pown = collectives.pool_to_local(shard, prob.pidx, prob.pval)
+    ptgt = torch.where(pown & ~state.mp_outlier[pidx], pidx, C)
     mp_pos = mapstate.with_spare(state.mp_pos)
     mp_pos[ptgt] = pts2
     mp_opt = mapstate.with_spare(state.mp_optimized)
     mp_opt[ptgt] = True
     state = state.replace(kf_pose=kf_pose[:K], mp_pos=mp_pos[:C], mp_optimized=mp_opt[:C])
     # pruned observations leave the map (backend.cpp:148-153, 164-168)
-    state = mapstate.remove_observations_rows(state, prob.pidx, prob.pval, pruned)
+    state = mapstate.remove_observations_rows(state, pidx, pown, pruned)
     out = BAOutput(num_pruned=torch.sum(pruned), num_points=torch.sum(prob.pval), num_poses=torch.sum(prob.wval))
     return state, out

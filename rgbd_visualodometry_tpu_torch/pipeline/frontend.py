@@ -9,6 +9,12 @@ triangulation.  The branchy decisions stay predicate-masked tensors, so a
 step issues its work without waiting on the device; relocalization and
 localization-only mode live inside :func:`track_compute` as in the
 reference.
+
+With ``shard`` (a ``ops.collectives.MapShard``) the state holds one
+rank's block of the map-point pool (``parallel.ShardedMapVO``): the
+reductions, compactions and gathers over the pool go through
+``ops.collectives``, every rank computes the rest, and the ranks take
+rank 0's :class:`TrackInter` before any of them writes its block.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from rgbd_visualodometry_tpu_torch.mapstate import INITIALIZING, LOST, TRACKING,
 from rgbd_visualodometry_tpu_torch.ops import depth as depth_mod
 from rgbd_visualodometry_tpu_torch.ops import image as im
 from rgbd_visualodometry_tpu_torch.ops import lm, matching, orb, packing, pnp, se3, triangulate
+from rgbd_visualodometry_tpu_torch.ops import collectives
 
 
 class FrameInput(NamedTuple):
@@ -123,16 +130,22 @@ class TrackInter(NamedTuple):
     n_match: torch.Tensor
 
 
-def _match_and_estimate(cfg, camera, state: VOState, nn, feats, kp_cam, dep, tmap, pose, key, is_lost, coarse=False):
+# every field but ``tmap`` (the pool's, one block per rank) is the same on
+# every rank of a split pool
+_REPLICATED = tuple(f for f in TrackInter._fields if f != "tmap")
+
+
+def _match_and_estimate(cfg, camera, state: VOState, nn, feats, kp_cam, dep, tmap, pose, key, is_lost, coarse=False,
+                        shard=None):
     """One round: candidates -> gate -> best-P compaction -> RANSAC -> LM."""
     observable = cam_mod.in_frustum(camera, state.mp_pos, pose, state.mp_norm, cfg.max_observe_angle)
     cand = tmap & observable
     if cfg.enable_relocalization:
         cand = torch.where(is_lost, state.mp_alive, cand)
-    mres = matching.gate_matches(nn, cand, cfg.match_ratio, cfg.min_match_distance)
-    midx, mval = packing.compact_best_indices(mres.matched, mres.distance, cfg.pnp_max_points)
-    p_w = state.mp_pos[midx]
-    kpi = mres.kp_index[midx].long()
+    mres = matching.gate_matches(nn, cand, cfg.match_ratio, cfg.min_match_distance, shard=shard)
+    midx, mval = collectives.pool_compact_best_indices(shard, mres.matched, mres.distance, cfg.pnp_max_points)
+    p_w, kpi = collectives.pool_rows(shard, midx, state.mp_pos, mres.kp_index)
+    kpi = kpi.long()
     uv = feats.xy[kpi]
     p_cam = kp_cam[kpi]
     d_ok = dep.valid[kpi] & mval
@@ -143,8 +156,7 @@ def _match_and_estimate(cfg, camera, state: VOState, nn, feats, kp_cam, dep, tma
         depth_free_fraction=cfg.ransac_depth_free_fraction,
     )
     ref = lm.refine_pose(rr.pose, p_w, uv, rr.inliers & mval, camera, lm_iters, cfg.huber_delta, cfg.pose_chi2_outlier)
-    info = dict(midx=midx, mval=mval, kpi=kpi, uv=uv, rr=rr, ref=ref,
-                n_cand=torch.sum(cand), n_match=torch.sum(mres.matched))
+    info = dict(midx=midx, mval=mval, kpi=kpi, uv=uv, rr=rr, ref=ref, cand=cand, matched=mres.matched)
     return ref.pose, info
 
 
@@ -152,7 +164,7 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x))
 
 
-def track_compute(cfg, camera, state: VOState, frame: FrameInput) -> TrackInter:
+def track_compute(cfg, camera, state: VOState, frame: FrameInput, shard=None) -> TrackInter:
     """Read-only half: ORB -> match -> RANSAC/LM -> gates -> FSM."""
     gray = im.rgb_to_gray(frame.rgb)
     feats = orb.extract(
@@ -169,11 +181,13 @@ def track_compute(cfg, camera, state: VOState, frame: FrameInput) -> TrackInter:
     keys = vo_random.split(state.rng, 3)
     rng, k1, k2 = keys[0], keys[1], keys[2]
 
-    tmap = state.mp_alive if cfg.localization_only else mapstate.tracking_map_mask(state, cfg)
+    tmap = state.mp_alive if cfg.localization_only else mapstate.tracking_map_mask(state, cfg, shard)
     # one nearest-keypoint table per frame, shared by both rounds (kernel K2)
     nn = matching.nearest_keypoints_packed(state.mp_desc, feats.desc, feats.valid)
-    pose_c, _ = _match_and_estimate(cfg, camera, state, nn, feats, kp_cam, dep, tmap, state.prev_pose, k1, is_lost, coarse=True)
-    pose_f, info = _match_and_estimate(cfg, camera, state, nn, feats, kp_cam, dep, tmap, pose_c, k2, is_lost)
+    pose_c, _ = _match_and_estimate(cfg, camera, state, nn, feats, kp_cam, dep, tmap, state.prev_pose, k1, is_lost,
+                                    coarse=True, shard=shard)
+    pose_f, info = _match_and_estimate(cfg, camera, state, nn, feats, kp_cam, dep, tmap, pose_c, k2, is_lost, shard=shard)
+    n_cand, n_match = collectives.pool_sum(shard, torch.sum(info["cand"]), torch.sum(info["matched"]))
 
     # quality gate (IsGoodEstimation, frontend.cpp:334-351)
     rel = se3.log(se3.relative(state.prev_pose, pose_f))
@@ -207,18 +221,22 @@ def track_compute(cfg, camera, state: VOState, frame: FrameInput) -> TrackInter:
         do_insert = is_init | is_kf
     pose_used = torch.where(is_init, se3.identity(torch.float32, pose_f.device), pose_f)
 
-    return TrackInter(
+    it = TrackInter(
         xy=feats.xy, desc=feats.desc, kp_valid=feats.valid, depth=dep.depth, depth_valid=dep.valid,
         midx=info["midx"], mval=info["mval"], kpi=info["kpi"], uv=info["uv"],
         ref_inliers=info["ref"].inliers, tmap=tmap, pose_used=pose_used,
         is_init=is_init, is_kf=is_kf, do_insert=do_insert, good=good,
         fsm=fsm, lost_count=lost_count, rng=rng, timestamp=frame.timestamp,
         num_inliers=info["rr"].num_inliers, num_final_inliers=info["ref"].num_final_inliers,
-        n_cand=info["n_cand"], n_match=info["n_match"],
+        n_cand=n_cand, n_match=n_match,
     )
+    if shard is None:
+        return it
+    agreed = collectives.broadcast_tensors(shard, *(getattr(it, f) for f in _REPLICATED))
+    return it._replace(**dict(zip(_REPLICATED, agreed)))
 
 
-def apply_updates(cfg, camera, state: VOState, it: TrackInter):
+def apply_updates(cfg, camera, state: VOState, it: TrackInter, shard=None):
     """State-update half: keyframe insert, observations, new mappoints,
     triangulation, bookkeeping.  Returns ``(state, StepOutput)``."""
     C = cfg.max_mappoints
@@ -236,7 +254,7 @@ def apply_updates(cfg, camera, state: VOState, it: TrackInter):
 
     # observations of the post-LM inliers (frontend.cpp:366-370)
     inlier_packed = it.ref_inliers & it.mval
-    inlier_mp, minv = packing.inverse_lookup(C, it.midx, inlier_packed)
+    inlier_mp, minv = collectives.pool_local_mask(shard, C, it.midx, inlier_packed)
     uv_for_mp = it.uv[minv] * inlier_mp[:, None]
     kp_depth = it.depth[it.kpi] * it.depth_valid[it.kpi]
     depth_for_mp = kp_depth[minv] * inlier_mp
@@ -248,16 +266,16 @@ def apply_updates(cfg, camera, state: VOState, it: TrackInter):
     p_world_new = cam_mod.pixel2world(camera, it.xy, pose_used, it.depth)
     n_create_req = torch.sum(create_mask & inserted)
     state, n_created = mapstate.create_mappoints(
-        state, kf_slot, p_world_new, it.desc, it.xy, create_mask, cam_center, inserted, it.depth
+        state, kf_slot, p_world_new, it.desc, it.xy, create_mask, cam_center, inserted, it.depth, shard=shard
     )
 
     # triangulation refinement (frontend.cpp:465-506)
     tri_cand = it.tmap & inlier_mp & ~state.mp_triangulated & ~state.mp_optimized & ~state.mp_outlier
-    tidx, tval = packing.compact_indices(tri_cand, cfg.triangulation_batch)
-    obs_kf = state.obs_kf[tidx]  # [B, M]
-    obs_ok = state.obs_valid[tidx] & tval[:, None]
+    tidx, tval = collectives.pool_compact_indices(shard, tri_cand, cfg.triangulation_batch)
+    obs_kf, obs_valid, obs_uv = collectives.pool_rows(shard, tidx, state.obs_kf, state.obs_valid, state.obs_uv)  # [B, M]
+    obs_ok = obs_valid & tval[:, None]
     poses_obs = state.kf_pose[obs_kf.clamp_min(0).long()]  # [B, M, 7]
-    norm_xy = cam_mod.pixel2camera(camera, state.obs_uv[tidx], 1.0)[..., :2]
+    norm_xy = cam_mod.pixel2camera(camera, obs_uv, 1.0)[..., :2]
     tri = triangulate.triangulate(
         poses_obs, norm_xy, obs_ok, cfg.triangulation_sv_ratio, cfg.triangulation_min_obs,
         min_baseline=cfg.triangulation_min_baseline,
@@ -265,7 +283,7 @@ def apply_updates(cfg, camera, state: VOState, it: TrackInter):
     tri_ok = tval & tri.ok & (tri.points[:, 2] > 0) & is_kf_eff
     if cfg.compat_single_triangulation:
         tri_ok = tri_ok & (torch.cumsum(tri_ok.to(torch.int64), 0) == 1)
-    thit, tinv = packing.inverse_lookup(C, tidx, tri_ok)
+    thit, tinv = collectives.pool_local_mask(shard, C, tidx, tri_ok)
     state = state.replace(
         mp_pos=torch.where(thit[:, None], tri.points[tinv], state.mp_pos),
         mp_triangulated=state.mp_triangulated | thit,
@@ -295,7 +313,7 @@ def apply_updates(cfg, camera, state: VOState, it: TrackInter):
         num_new_mappoints=n_created,
         num_triangulated=torch.sum(tri_ok),
         num_keyframes=state.num_kf,
-        num_mappoints=torch.sum(state.mp_alive),
+        num_mappoints=collectives.pool_sum(shard, torch.sum(state.mp_alive)),
         kf_overflow=kf_overflow,
         num_dropped_mappoints=n_create_req - n_created,
     )
@@ -311,13 +329,13 @@ def viewer_payload(it: TrackInter) -> torch.Tensor:
     return torch.cat([it.xy.float(), (matched & it.kp_valid).float()[:, None]], dim=-1)
 
 
-def track_step(cfg, camera, state: VOState, frame: FrameInput):
+def track_step(cfg, camera, state: VOState, frame: FrameInput, shard=None):
     """``(state, frame) -> (state, StepOutput)``.  The viewer payload is
     made here, on the single-stream path only: ``MultiStreamVO`` vmaps
     :func:`track_compute` and :func:`apply_updates`, whose outputs hold no
     optional field."""
-    it = track_compute(cfg, camera, state, frame)
-    state, out = apply_updates(cfg, camera, state, it)
+    it = track_compute(cfg, camera, state, frame, shard)
+    state, out = apply_updates(cfg, camera, state, it, shard)
     if cfg.enable_viewer:
         out = out._replace(viewer=viewer_payload(it))
     return state, out

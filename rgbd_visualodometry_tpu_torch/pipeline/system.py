@@ -88,6 +88,10 @@ class VisualOdometry:
             res = vo.process(rgb, depth, t)
     """
 
+    # this process holds the whole map; ``parallel.ShardedMapVO`` sets its
+    # rank's block of the pool (a ``ops.collectives.MapShard``)
+    shard = None
+
     def __init__(self, cfg, seed: int = 0, device="cuda"):
         self.device = open_device(device)
         self.cfg = cfg
@@ -133,7 +137,7 @@ class VisualOdometry:
             frame = self.put_frame(rgb, depth, timestamp)
         if rgb_ref is None and self._viewer is not None:
             rgb_ref = frame.rgb if isinstance(rgb, frontend_mod.FrameInput) else rgb
-        self.state, out = frontend_mod.track_step(self.cfg, self.camera, self.state, frame)
+        self.state, out = frontend_mod.track_step(self.cfg, self.camera, self.state, frame, self.shard)
         self._pending.append((float(timestamp), out, time.perf_counter() - t0, rgb_ref))
 
     def _materialize(self, ts: float, out, dispatch_s: float, rgb_ref=None) -> FrameResult:
@@ -141,7 +145,7 @@ class VisualOdometry:
         f = frontend_mod.StepOutput._FIELDS
         self._frames_since_ba += 1
         if self.enable_backend and o[f["needs_ba"]] > 0.5 and self._frames_since_ba > self.cfg.ba_min_frame_gap:
-            self.state, _ = backend.ba_step(self.cfg, self.camera, self.state, int(o[f["kf_slot"]]))
+            self.state, _ = backend.ba_step(self.cfg, self.camera, self.state, int(o[f["kf_slot"]]), self.shard)
             self._frames_since_ba = 0
             self.ba_dispatches += 1
         res = FrameResult(
@@ -185,12 +189,34 @@ class VisualOdometry:
     def map_snapshot(self) -> dict:
         """Host copy of the live map: alive mappoints ``[n, 3]``, valid
         keyframe poses ``[k, 7]`` and the keyframe count."""
-        s = self.state
+        s = self.whole_state()
         return dict(
             mappoints=s.mp_pos[s.mp_alive].cpu().numpy(),
             keyframe_poses=s.kf_pose[s.kf_valid].cpu().numpy(),
             num_keyframes=int(s.num_kf),
         )
+
+    def whole_state(self) -> mapstate.VOState:
+        """The whole map state: ``state`` itself here, the ranks' blocks
+        gathered in ``parallel.ShardedMapVO`` (a collective there)."""
+        return self.state
+
+    def _agree(self, compute) -> Optional[globalopt.Relaxation]:
+        """The relaxation every rank applies: ``compute()`` here.  In
+        ``parallel.ShardedMapVO`` rank 0 alone calls it and broadcasts the
+        result, and a failure there raises on every rank."""
+        return compute()
+
+    @property
+    def _relaxes(self) -> bool:
+        """Whether this process computes the relaxation (rank 0 of a
+        ``parallel.ShardedMapVO``; the others take its result)."""
+        return self.shard is None or self.shard.rank == 0
+
+    def _relax_done(self, thread: threading.Thread) -> bool:
+        """Whether the async relaxation in flight has finished (on every
+        rank, in ``parallel.ShardedMapVO``)."""
+        return not thread.is_alive()
 
     def run(self, frames, trajectory_path: Optional[str] = None, verbose: bool = False,
             lag: int = 3, stats_path: Optional[str] = None):
@@ -318,14 +344,15 @@ class VisualOdometry:
         flight ("latest wins", ``backend.h:33-37``): the run loop starts
         one only when none is.  The clone is enqueued on the main thread,
         before any of the worker's ops."""
-        snapshot = pytree.tree_map(torch.clone, self.state)
-        cfg = self.cfg
+        snapshot = pytree.tree_map(torch.clone, self.whole_state())
+        cfg, relaxes = self.cfg, self._relaxes
 
         def worker():
             try:
-                self._relax_result = globalopt.compute_relaxation(
-                    snapshot, cfg, loop_gap_s=cfg.relax_loop_gap_s, require_loop=True
-                )
+                if relaxes:
+                    self._relax_result = globalopt.compute_relaxation(
+                        snapshot, cfg, loop_gap_s=cfg.relax_loop_gap_s, require_loop=True
+                    )
             except BaseException as e:  # re-raised on the main thread by _finish_async_relax
                 self._relax_exc = e
 
@@ -338,14 +365,19 @@ class VisualOdometry:
         materialized results.  Returns the ``globalopt.Relaxation`` consumed,
         else None."""
         t = self._relax_thread
-        if t is None or (not wait and t.is_alive()):
+        if t is None or (not wait and not self._relax_done(t)):
             return None
         t.join()
         self._relax_thread = None
-        if self._relax_exc is not None:
-            exc, self._relax_exc = self._relax_exc, None
-            raise exc
-        rlx, self._relax_result = self._relax_result, None
+        exc, rlx = self._relax_exc, self._relax_result
+        self._relax_exc = self._relax_result = None
+
+        def result():
+            if exc is not None:
+                raise exc
+            return rlx
+
+        rlx = self._agree(result)
         self.num_auto_relaxes += 1
         if rlx is not None and rlx.report.kf_ts.size:
             self.state = globalopt.apply_relaxation(self.state, rlx)
@@ -368,5 +400,7 @@ class VisualOdometry:
         call mid-run and keep tracking.  Returns a ``globalopt.RelaxReport``;
         ``globalopt.correct_trajectory`` applies it to per-frame poses
         (frame timestamps minus ``time_base``)."""
-        self.state, report = globalopt.relax_map(self.state, self.cfg, **kwargs)
-        return report
+        whole = self.whole_state()
+        rlx = self._agree(lambda: globalopt.compute_relaxation(whole, self.cfg, **kwargs))
+        self.state = globalopt.apply_relaxation(self.state, rlx)
+        return rlx.report

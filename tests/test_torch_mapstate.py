@@ -161,3 +161,19 @@ def test_remove_observations_rows_matches(leaves5, n_rows, p_prune):
     np.testing.assert_array_equal(tms.incidence_from_obs(ts).numpy(), ts.A_inc.numpy())
     if p_prune == 1.0:
         assert ts.mp_outlier[t(pidx).long()[t(pval)]].all()
+
+
+@pytest.mark.parametrize("p_remove", [0.3, 1.0, 0.0])
+def test_remove_observations_matches(leaves5, p_remove):
+    """The full-pool form on the same state: random observation slots of the
+    whole pool removed (invalid slots among them, which change nothing);
+    p_remove = 1 empties every point, which all become outliers."""
+    rng = np.random.default_rng(int(p_remove * 10))
+    M, C = leaves5["obs_kf"].shape
+    rm = rng.random((M, C)) < p_remove  # the JAX package's [M, C] layout
+    js = jms.remove_observations(jax_state(leaves5), jnp.asarray(rm))
+    ts = tms.remove_observations(tms.state_from_numpy(leaves5, device="cpu"), t(rm.T.copy()))
+    assert_state_equal(ts, {k: np.asarray(v) for k, v in js._asdict().items()}, atol=0)
+    np.testing.assert_array_equal(tms.incidence_from_obs(ts).numpy(), ts.A_inc.numpy())
+    if p_remove == 1.0:
+        assert not ts.obs_valid.any() and bool((ts.mp_outlier | ~ts.mp_valid).all())

@@ -136,7 +136,8 @@ def test_port_runs_without_jax():
     """The port, imported and run for 8 CPU frames with BA, one
     ``global_relax`` (``ops.posegraph``, ``ops.loopclosure``,
     ``pipeline.globalopt``), 2 batched steps of two streams
-    (``parallel.MultiStreamVO``), then the user-facing surfaces - ``cli.main``
+    (``parallel.MultiStreamVO``), 2 frames of ``parallel.ShardedMapVO`` on
+    a one-rank gloo group (``ops.collectives``), then the user-facing surfaces - ``cli.main``
     on a config file with ``--synthetic 4 --cpu --save-map``, the
     checkpoint's ``load_state``, ``evaltools``, a TUM directory through
     ``io.tum`` (``io.png``, ``native``), ``viz`` and ``utils`` - in a fresh
@@ -171,6 +172,13 @@ def test_port_runs_without_jax():
         "ms.finish()\n"
         "assert out.packed.shape == (2, 32) and bool(out.tracked.all()), out.packed\n"
         "import tempfile\n"
+        "from rgbd_visualodometry_tpu_torch.ops import collectives\n"
+        "from rgbd_visualodometry_tpu_torch.parallel import ShardedMapVO, map_partition_specs, open_group\n"
+        "from rgbd_visualodometry_tpu_torch.parallel import sharded_match_descriptors\n"
+        "tp = ShardedMapVO(cfg, open_group('gloo', 'file://' + tempfile.mkdtemp() + '/rdv', 1, 0), device='cpu')\n"
+        "assert all(tp.process(f.rgb, f.depth, f.timestamp).tracked for f in seq[:2]) and tp.shard.world == 1\n"
+        "assert map_partition_specs().A_inc == 1 and callable(sharded_match_descriptors) and collectives.MapShard\n"
+        "torch.distributed.destroy_process_group()\n"
         "from rgbd_visualodometry_tpu_torch import cli, evaltools, native, viz\n"
         "from rgbd_visualodometry_tpu_torch.io import checkpoint, png, trajectory, tum\n"
         "from rgbd_visualodometry_tpu_torch.utils import StageTimer\n"
