@@ -83,17 +83,28 @@
    CLI written exactly where matplotlib imports.  It prints which of
    PyYAML, OpenCV, matplotlib, Pillow and libpng this machine has, the ms
    per frame through the CLI and the phase's wall time.
+5d. Bench phase: the port's bench program
+   (``rgbd_visualodometry_tpu_torch/bench.py``, the counterpart of the
+   root ``bench.py``) through its phase functions with the protocol cut to
+   1 pass of 3 windows (4 warm-up frames, windows of 5 frames or 2 batch
+   steps): ``bench_single`` (single-stream full VO, BA in the lagged
+   drain) and ``bench_multistream`` with 32 streams of tracking only (the
+   bench's third phase), each with the counts reset just before it.  Every
+   frame must be tracked, K1 and K2 must launch once per frame or batch
+   step, the windows must be finite and logged with this card's name, and
+   the result line must carry ``bench.py``'s keys.
 6. Multistream phase: the bench's headline "72-stream batched full VO",
    ``parallel.MultiStreamVO`` over ``bench.multistream_cfg(VOConfig(),
    full_vo=True)`` (the full-VO config with packed matching and BA at most
    every 15 steps): 72 streams, each its own 640x480 sequence (seed ``s``,
-   rendered in a process pool), 12 warm-up and 12 timed batch steps, the
-   batches staged on the card first.  Every stream must track every frame
+   rendered by ``bench.render_streams`` in a process pool), 12 warm-up and
+   12 timed batch steps, the batches staged on the card first.  Every stream must track every frame
    with ATE < 3 cm, a masked BA must have run, and K1 and K2 must have
    launched exactly once per batch step.  Then K1 (72 streams x 8 levels)
    and K2 (72 x 16384 x 500, one stream all masked) are compared with their
    plain versions per stream, and timed after the other kernels, with
-   ``torch.bmm`` in fp16 as K2's library yardstick.
+   ``torch.bmm`` in fp16 as K2's library yardstick; the same at the first
+   32 streams, the shapes of the bench's tracking phase (step 5d).
 6b. Distributed phase: the port's multi-process half (``parallel``) on
    the one card, every rank on ``cuda:0``.  Two spawned ranks of a gloo
    group with CUDA tensors (NCCL refuses two ranks on one device) run
@@ -132,8 +143,11 @@
    ``multistream`` entry: the same keys at the batched shapes, with
    ``launches`` from step 6, ``loop_closure_launches``, their counts in
    the two runs of step 5b, ``cli_launches``, their counts in the four
-   tracking runs of step 5c, and ``distributed_launches``, their counts on
-   each rank in step 6b.
+   tracking runs of step 5c, ``distributed_launches``, their counts on
+   each rank in step 6b, and ``bench_single_launches``, their count in
+   step 5d's single-stream run; the ``multistream`` entry holds
+   ``tracking_launches``, their count in step 5d's 32-stream tracking run,
+   and ``tracking``, their timings at 32 streams.
 
 Any failure raises and exits nonzero; without a CUDA device, or without the
 repository beside this file, it exits nonzero before printing a result.
@@ -160,6 +174,7 @@ ATE_LIMIT_M = 0.03
 MS_STREAMS = 72  # bench.FULL_VO_STREAMS
 MS_WARMUP = 12  # bench.WARMUP_FRAMES
 MS_MEASURED = 12
+TRACKING_STREAMS = 32  # bench.TRACKING_STREAMS
 LOOP_FRAMES = 64  # tests/test_loopclosure.py::test_online_relax_fullres_closed_loop
 CLI_FRAMES = 60
 TUM_FRAMES = 30
@@ -191,15 +206,11 @@ def sass_summary(lib) -> dict:
 
 def full_vo_config():
     """``bench.single_stream_cfg(VOConfig())``, the repo's headline
-    single-stream workload with local BA after every keyframe - written out
-    here because bench.py imports the JAX package."""
-    from rgbd_visualodometry_tpu_torch import VOConfig
+    single-stream workload with local BA after every keyframe (the port's
+    bench program, ``rgbd_visualodometry_tpu_torch/bench.py``)."""
+    from rgbd_visualodometry_tpu_torch import VOConfig, bench
 
-    return VOConfig().replace(
-        max_mappoints=16384, max_keyframes=128, max_obs_per_mappoint=8,
-        ba_max_points=1024, ba_max_poses=8, pnp_max_points=512,
-        triangulation_batch=128, ransac_hypotheses=64,
-    )
+    return bench.single_stream_cfg(VOConfig())
 
 
 def slice_config():
@@ -211,7 +222,9 @@ def multistream_config():
     """``bench.multistream_cfg(VOConfig(), full_vo=True)``, the config of the
     repo's headline "72-stream batched full VO": :func:`full_vo_config` with
     packed matching and one batched BA solve at most every 15 steps."""
-    return full_vo_config().replace(packed_matching=True, ba_min_frame_gap=14)
+    from rgbd_visualodometry_tpu_torch import VOConfig, bench
+
+    return bench.multistream_cfg(VOConfig(), full_vo=True)
 
 
 def loop_config():
@@ -243,28 +256,9 @@ def loop_frames(cfg, n: int = LOOP_FRAMES):
 def make_frames(cfg, n: int, seed: int = 0):
     """The frames of ``bench._make_frames``: the synthetic textured plane,
     a constant-velocity drift with yaw."""
-    from rgbd_visualodometry_tpu_torch.io import synthetic
+    from rgbd_visualodometry_tpu_torch import bench
 
-    scene = synthetic.SyntheticScene(
-        width=cfg.image_width, height=cfg.image_height,
-        fx=cfg.camera_fx, fy=cfg.camera_fy, cx=cfg.camera_cx, cy=cfg.camera_cy,
-        seed=seed,
-    )
-    return synthetic.generate_sequence(n, scene=scene, step_t=(0.012, 0.002, 0.0), step_r=(0.0, 0.0, 0.003))
-
-
-def _render_stream(args):
-    """One stream's sequence (``bench._make_frames`` with ``seed``), run in
-    a worker process: ``(rgb [T, H, W, 3], depth [T, H, W], timestamps [T],
-    ground-truth camera centres [T, 3])``."""
-    import numpy as np
-
-    from rgbd_visualodometry_tpu_torch.io.synthetic import _pose_inverse as pose_inverse
-
-    cfg, n, seed = args
-    frames = make_frames(cfg, n, seed=seed)
-    return (np.stack([f.rgb for f in frames]), np.stack([f.depth for f in frames]),
-            np.array([f.timestamp for f in frames]), np.stack([pose_inverse(f.T_c_w)[4:7] for f in frames]))
+    return bench._make_frames(cfg, n, seed=seed)
 
 
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W)
@@ -1169,14 +1163,76 @@ def cli_phase(dev) -> dict:
     return counts
 
 
-def _render_streams(cfg, n_streams: int, n_frames: int):
-    """Every stream's own sequence (seed ``s``, as ``bench.py`` renders
-    them), rendered in a pool of worker processes."""
-    import multiprocessing
+# the bench phase (step 5d): the protocol cut to 1 pass of 3 windows of 5
+# frames, or of 2 batch steps, after 4 warm-up frames
+BENCH_CUT = dict(WARMUP_FRAMES=4, MEASURE_FRAMES=5, MS_MEASURE_FRAMES=6)
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "vs_strongest_twin", "best", "median", "passes"]  # bench.py's
 
-    workers = max(1, min(n_streams, os.cpu_count() or 1))
-    with multiprocessing.get_context("spawn").Pool(workers) as pool:
-        return pool.map(_render_stream, [(cfg, n_frames, s) for s in range(n_streams)])
+
+def bench_phase(smi: str, dev) -> dict:
+    """Step 5d: the port's bench program (``rgbd_visualodometry_tpu_torch.bench``)
+    through its own phase functions, with the protocol cut to
+    :data:`BENCH_CUT` and 1 pass: ``bench_single`` (single-stream full VO)
+    and ``bench_multistream`` with ``TRACKING_STREAMS`` streams of tracking,
+    each with the counts reset just before it.  Each must track every frame
+    (the phases raise otherwise), launch K1 and K2 once per frame or batch
+    step, give 3 finite windows, log them with this card's name, and give a
+    result line with ``bench.py``'s keys.  Returns each run's counts."""
+    import tempfile
+
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import VOConfig, bench, kernels
+
+    t_phase = time.perf_counter()
+    saved = {k: getattr(bench, k) for k in BENCH_CUT}
+    counts = {}
+    try:
+        for k, v in BENCH_CUT.items():
+            setattr(bench, k, v)
+        divisors = bench.load_baseline()
+        reporter = bench._Reporter(divisors["frontend_only"])
+        S = bench.TRACKING_STREAMS
+        with tempfile.TemporaryDirectory() as tmp:
+            log = os.path.join(tmp, "windows.jsonl")
+            for name, units, run, divisor, label in (
+                ("single", bench.WARMUP_FRAMES + 3 * bench.MEASURE_FRAMES,
+                 lambda: bench.bench_single(VOConfig(), repeats=1, device=dev, window_log=log),
+                 divisors["full_vo"], "single-stream full VO"),
+                ("tracking", bench.WARMUP_FRAMES + bench.MS_MEASURE_FRAMES,
+                 lambda: bench.bench_multistream(VOConfig(), S, full_vo=False, repeats=1, device=dev, window_log=log),
+                 divisors["frontend_only"], f"{S}-stream batched tracking"),
+            ):
+                t0 = time.perf_counter()
+                kernels.reset_counts()
+                got = run()
+                torch.cuda.synchronize()
+                counts[name] = kernels.counts()
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    reporter.add(got, divisor, label)
+                line = json.loads(text.getvalue().strip().splitlines()[-1])
+                print(f"bench {label}: 1 pass, windows {[round(w, 2) for w in got['windows'][0]]} "
+                      f"{'frames' if name == 'single' else 'stream-frames'}/s, {units} "
+                      f"{'frames' if name == 'single' else 'steps'}, launches {counts[name]}, "
+                      f"{time.perf_counter() - t0:.1f} s; result line {json.dumps(line)}")
+                if counts[name]["fast_nms"] != units or counts[name]["hamming_nn"] != units:
+                    raise AssertionError(f"bench {label}: launches {counts[name]}, expected {units} each")
+                if got["passes"] != 1 or len(got["windows"][0]) != 3 or not all(
+                        math.isfinite(w) and w > 0 for w in got["windows"][0]):
+                    raise AssertionError(f"bench {label}: {got}")
+                if list(line) != BENCH_KEYS:
+                    raise AssertionError(f"bench {label}: result line keys {list(line)}, expected {BENCH_KEYS}")
+            with open(log) as f:
+                logged = [json.loads(x) for x in f]
+        if [r["phase"] for r in logged] != ["single-stream full VO", f"{S}-stream batched tracking"] or not all(
+                r["card"].startswith(smi.split(",")[0]) for r in logged):
+            raise AssertionError(f"bench window log: {logged}")
+    finally:
+        for k, v in saved.items():
+            setattr(bench, k, v)
+    print(f"bench phase: {time.perf_counter() - t_phase:.1f} s (window log card field: {logged[0]['card']})")
+    return counts
 
 
 def multistream_phase(cfg, dev, profile_steps: int = 0):
@@ -1190,25 +1246,30 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
     returns their entries for the JSON line, one that runs
     :func:`profile_phase` over ``2 * profile_steps`` more batch steps
     (``--profile``; None without), and what the distributed phase compares
-    with: the sequences, the steps, the BA dispatches and the largest ATE."""
+    with: the frames, stamps and ground truth, the steps, the records, the
+    BA dispatches and the largest ATE."""
+    import tempfile
+
     import numpy as np
     import torch
 
-    from rgbd_visualodometry_tpu_torch import kernels
+    from rgbd_visualodometry_tpu_torch import bench, kernels
     from rgbd_visualodometry_tpu_torch.evaltools import ate_rmse
+    from rgbd_visualodometry_tpu_torch.io.synthetic import _pose_inverse as pose_inverse
     from rgbd_visualodometry_tpu_torch.ops import fast, image as im, matching
     from rgbd_visualodometry_tpu_torch.parallel import MultiStreamVO
     from rgbd_visualodometry_tpu_torch.pipeline.frontend import StepOutput
 
     S, n = MS_STREAMS, MS_WARMUP + MS_MEASURED
     t0 = time.perf_counter()
-    seqs = _render_streams(cfg, S, n + 2 * profile_steps)
-    print(f"multistream: rendered {S} sequences x {len(seqs[0][0])} frames {cfg.image_width}x{cfg.image_height} "
+    with tempfile.TemporaryDirectory() as tmp:
+        seq = {k: np.array(v) for k, v in bench.render_streams(cfg, S, n + 2 * profile_steps, tmp).items()}
+    gt = np.apply_along_axis(lambda T: pose_inverse(T)[4:7], -1, seq["T_c_w"])  # camera centres [T, S, 3]
+    print(f"multistream: rendered {S} sequences x {len(seq['rgb'])} frames {cfg.image_width}x{cfg.image_height} "
           f"(seeds 0-{S - 1}) in {time.perf_counter() - t0:.1f} s")
 
     vo = MultiStreamVO(cfg, S, device=dev)
-    batches = [vo.put_batch(np.stack([q[0][i] for q in seqs]), np.stack([q[1][i] for q in seqs]),
-                            np.array([q[2][i] for q in seqs])) for i in range(n + 2 * profile_steps)]
+    batches = [vo.put_batch(seq["rgb"][i], seq["depth"][i], seq["timestamp"][i]) for i in range(n + 2 * profile_steps)]
     ba_s = []
     masked_ba = vo._ba
 
@@ -1235,7 +1296,8 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
     rec = torch.stack(outs).cpu().numpy()  # [steps, S, 32]
     f = StepOutput._FIELDS
     tracked = rec[..., f["tracked"]] > 0.5
-    ates = [ate_rmse(seqs[s][2][:n], rec[:, s, 11:14], seqs[s][2][:n], seqs[s][3][:n]) for s in range(S)]
+    stamps = seq["timestamp"][:n]
+    ates = [ate_rmse(stamps[:, s], rec[:, s, 11:14], stamps[:, s], gt[:n, s]) for s in range(S)]
     measured = step_s[MS_WARMUP:]
     print(f"multistream: {S} streams x {n} steps, {int(tracked.sum())}/{tracked.size} stream-frames tracked, "
           f"ATE max {100 * max(ates):.3f} cm, mean {100 * statistics.mean(ates):.3f} cm; "
@@ -1254,7 +1316,8 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
         raise AssertionError(f"multistream: {vo.ba_dispatches} BA dispatches")
     if counts["fast_nms"] != n or counts["hamming_nn"] != n:
         raise AssertionError(f"multistream: launches {counts}, expected fast_nms and hamming_nn {n} times each")
-    reference = dict(seqs=seqs, steps=n, ba_dispatches=vo.ba_dispatches, ate_max=max(ates), records=rec)
+    reference = dict(rgb=seq["rgb"][:n], depth=seq["depth"][:n], stamps=stamps, gt=gt[:n], steps=n,
+                     ba_dispatches=vo.ba_dispatches, ate_max=max(ates), records=rec)
     profile = None
     if profile_steps:
         def profile():
@@ -1265,16 +1328,12 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
         del batches, vo
     del outs
 
-    # K1 and K2 at the batched shapes: the frames' pyramids, and 72 pools of
-    # C words against 72 frames' N keypoints
-    gray = im.rgb_to_gray(torch.from_numpy(np.stack([q[0][0] for q in seqs])).to(dev))
+    # K1 and K2 at the batched shapes: the frames' pyramids, and pools of C
+    # words against the frames' N keypoints, at this phase's 72 streams and
+    # at the 32 of the bench's tracking phase (the first 32 of them)
+    gray = im.rgb_to_gray(torch.from_numpy(seq["rgb"][0]).to(dev))
     levels = torch.func.vmap(lambda g: im.build_pyramid(g, cfg.level_pyramid, cfg.scale_factor))(gray)
-    got = fast.fast_nms_streams(levels)
     want = torch.cat([torch.stack([fast.fast_nms_reference(g) for g in lv]).reshape(S, -1) for lv in levels], dim=1)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("K1 fast_nms differs from its plain version on the batched pyramids")
-    k1_err = float((got - want).abs().max())
     rng = np.random.default_rng(5)
     N, C = cfg.number_of_features, cfg.max_mappoints
     words = lambda *shape: torch.from_numpy(  # noqa: E731
@@ -1282,49 +1341,64 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
     cand, kp = words(S, C), words(S, N)
     mask = torch.from_numpy(rng.random((S, N)) >= 0.1).to(dev)
     mask[1] = False  # one stream with every keypoint masked
-    idx, dist = matching.hamming_nn_streams(cand, kp, mask)
-    k2_err = 0.0
-    for s in range(S):
-        ref = matching.hamming_nn_reference(cand[s], kp[s], mask[s])
-        if not (torch.equal(idx[s], ref.kp_index) and torch.equal(dist[s], ref.distance)):
-            raise AssertionError(f"K2 hamming_nn differs from its plain version on stream {s} of {S}")
-    print(f"K1 and K2 at {S} streams: exact per stream ({len(levels)} levels each; {S} pools {C}x{N}, "
-          "one with every keypoint masked)")
+    refs = [matching.hamming_nn_reference(cand[s], kp[s], mask[s]) for s in range(S)]
+    sizes = (S, TRACKING_STREAMS)
+    k1_err = {}
+    for s_n in sizes:
+        got = fast.fast_nms_streams([x[:s_n] for x in levels])
+        torch.cuda.synchronize()
+        if not torch.equal(got, want[:s_n]):
+            raise AssertionError(f"K1 fast_nms differs from its plain version on {s_n} streams' pyramids")
+        idx, dist = matching.hamming_nn_streams(cand[:s_n], kp[:s_n], mask[:s_n])
+        for s in range(s_n):
+            if not (torch.equal(idx[s], refs[s].kp_index) and torch.equal(dist[s], refs[s].distance)):
+                raise AssertionError(f"K2 hamming_nn differs from its plain version on stream {s} of {s_n}")
+        k1_err[s_n] = float((got - want[:s_n]).abs().max())
+    print(f"K1 and K2 at {' and '.join(map(str, sizes))} streams: exact per stream ({len(levels)} levels each; "
+          f"pools {C}x{N}, one with every keypoint masked)")
 
     def timings():
-        px = sum(lv.numel() for lv in levels)
+        """Per stream count (72, 32): K1's and K2's entries."""
         a16 = (matching.unpack_bits(cand) * 2 - 1).half()
         b16 = torch.zeros((S, 512, 256), dtype=torch.float16, device=dev)
         b16[:, :N] = (matching.unpack_bits(kp) * 2 - 1).half()
         dot = torch.bmm(a16[:1], b16[:1].mT)
-        lib = (None, "torch.bmm fp16: its distances differ from the plain version")
-        if torch.equal(((256 - dot[0, :, :N]) / 2).int(), matching.hamming_matrix_reference(cand[0], kp[0])):
-            lib = (_device_ms(lambda: torch.bmm(a16, b16.mT), None),
-                   f"torch.bmm fp16 [{S}, {C}, 256] x [{S}, 256, 512], distance half only")
-        entries = {}
-        for name, what, fn, plain, bound, library, err in (
-            ("fast_nms", f"{S} streams x {len(levels)} levels, {px} px, one launch",
-             lambda: fast.fast_nms_streams(levels), lambda: [fast.fast_nms_reference(g) for lv in levels for g in lv],
-             _bound(8 * px, K1_OPS_PER_PIXEL * px, "fp32"), (None, "none"), k1_err),
-            ("hamming_nn", f"{S} streams x N={N} C={C}, one launch",
-             lambda: matching.hamming_nn_streams(cand, kp, mask),
-             lambda: [matching.hamming_nn_reference(cand[s], kp[s], mask[s]) for s in range(S)],
-             _bound(S * (32 * C + 33 * N + 8 * C), S * 2 * 256 * C * N, "int8 tensor-core"), lib, k2_err),
-        ):
-            kname = "fast_nms_pyramid_kernel" if name == "fast_nms" else "hamming_nn_kernel"
-            device_ms = _device_ms(fn, kname)
-            plain_ms = _median_ms(plain, iters=3, warmup=1)
-            bound_ms, bound_by, basis = bound
-            entries[name] = dict(
-                streams=S, launches=counts[name], launches_per_step=counts[name] / n, device_ms=device_ms,
-                ms=_median_ms(fn), plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bound_basis=basis,
-                share_of_bound=bound_ms / device_ms, library_ms=library[0], library_call=library[1], max_abs_err=err,
-            )
-            lib_txt = "none" if library[0] is None else f"{library[0]:.4f} ms device time ({library[1]})"
-            print(f"{name} at {what}: device {device_ms:.4f} ms (torch.profiler), wrapper-inclusive events "
-                  f"{entries[name]['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-                  f"({basis}), {100 * bound_ms / device_ms:.1f}% of bound; library {lib_txt}")
-        return entries
+        lib_ok = torch.equal(((256 - dot[0, :, :N]) / 2).int(), matching.hamming_matrix_reference(cand[0], kp[0]))
+        out = {}
+        for s_n in sizes:
+            lv = [x[:s_n] for x in levels]  # per level [s_n, H, W]
+            px = sum(x.numel() for x in lv)
+            c_, k_, m_ = cand[:s_n], kp[:s_n], mask[:s_n]
+            lib = (None, "torch.bmm fp16: its distances differ from the plain version")
+            if lib_ok:
+                lib = (_device_ms(lambda: torch.bmm(a16[:s_n], b16[:s_n].mT), None),
+                       f"torch.bmm fp16 [{s_n}, {C}, 256] x [{s_n}, 256, 512], distance half only")
+            entries = out[s_n] = {}
+            for name, what, fn, plain, bound, library, err in (
+                ("fast_nms", f"{s_n} streams x {len(lv)} levels, {px} px, one launch",
+                 lambda: fast.fast_nms_streams(lv), lambda: [fast.fast_nms_reference(g) for x in lv for g in x],
+                 _bound(8 * px, K1_OPS_PER_PIXEL * px, "fp32"), (None, "none"), k1_err[s_n]),
+                ("hamming_nn", f"{s_n} streams x N={N} C={C}, one launch",
+                 lambda: matching.hamming_nn_streams(c_, k_, m_),
+                 lambda: [matching.hamming_nn_reference(c_[s], k_[s], m_[s]) for s in range(s_n)],
+                 _bound(s_n * (32 * C + 33 * N + 8 * C), s_n * 2 * 256 * C * N, "int8 tensor-core"), lib, 0.0),
+            ):
+                kname = "fast_nms_pyramid_kernel" if name == "fast_nms" else "hamming_nn_kernel"
+                device_ms = _device_ms(fn, kname)
+                plain_ms = _median_ms(plain, iters=3, warmup=1)
+                bound_ms, bound_by, basis = bound
+                entries[name] = dict(
+                    streams=s_n, device_ms=device_ms, ms=_median_ms(fn), plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, bound_basis=basis, share_of_bound=bound_ms / device_ms, library_ms=library[0],
+                    library_call=library[1], max_abs_err=err,
+                )
+                if s_n == S:  # this phase's own launches
+                    entries[name].update(launches=counts[name], launches_per_step=counts[name] / n)
+                lib_txt = "none" if library[0] is None else f"{library[0]:.4f} ms device time ({library[1]})"
+                print(f"{name} at {what}: device {device_ms:.4f} ms (torch.profiler), wrapper-inclusive events "
+                      f"{entries[name]['ms']:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                      f"({basis}), {100 * bound_ms / device_ms:.1f}% of bound; library {lib_txt}")
+        return out
 
     return timings, profile, reference
 
@@ -1607,20 +1681,10 @@ def distributed_phase(smi: str, ms_ref: dict) -> dict:
           f"{sum(ref['is_keyframe'])} keyframes, pool {ref['pool_bytes']} B")
 
     with tempfile.TemporaryDirectory() as tmp:
-        seqs, n = ms_ref["seqs"], ms_ref["steps"]
-        S = len(seqs)
-        h, w = seqs[0][1].shape[1:3]
-        rgb = np.lib.format.open_memmap(os.path.join(tmp, "rgb.npy"), "w+", np.uint8, (n, S, h, w, 3))
-        depth = np.lib.format.open_memmap(os.path.join(tmp, "depth.npy"), "w+", seqs[0][1].dtype, (n, S, h, w))
-        for s, q in enumerate(seqs):
-            rgb[:, s], depth[:, s] = q[0][:n], q[1][:n]
-        rgb.flush()
-        depth.flush()
-        del rgb, depth
-        np.save(os.path.join(tmp, "stamps.npy"), np.stack([q[2][:n] for q in seqs], axis=1))
-        np.save(os.path.join(tmp, "gt.npy"), np.stack([q[3][:n] for q in seqs], axis=1))
-        np.save(os.path.join(tmp, "records.npy"), ms_ref["records"])
-        small_ref = {k: v for k, v in ms_ref.items() if k not in ("seqs", "records")}
+        big = ("rgb", "depth", "stamps", "gt", "records")  # [steps, streams, ...], read by the ranks from files
+        for k in big:
+            np.save(os.path.join(tmp, f"{k}.npy"), ms_ref[k])
+        small_ref = {k: v for k, v in ms_ref.items() if k not in big}
         t0 = time.perf_counter()
         mp.start_processes(_rank_main, args=(2, "gloo", f"file://{tmp}/gloo", _gloo_job, (feed, ref, tmp, small_ref),
                                              tmp), nprocs=2, start_method="spawn")
@@ -1804,6 +1868,7 @@ def main() -> int:
     loop_counts = {mode: loop_phase(lcfg, circuit, depths, dev, relax_async=mode == "async") for mode in ("sync", "async")}
     del circuit, depths
     cli_counts = cli_phase(dev)
+    bench_counts = bench_phase(smi, dev)
     profiling = "--profile" in sys.argv[1:]
     time_batched, profile_batched, ms_ref = multistream_phase(multistream_config(), dev,
                                                               profile_steps=3 if profiling else 0)
@@ -1832,8 +1897,11 @@ def main() -> int:
     for e in entries:  # K3's `launches` is its own path's; per frame, every kernel's is full VO's
         e.setdefault("launches", counts[e["name"]])
         e["launches_per_frame"] = counts[e["name"]] / len(frames)
-        if e["name"] in batched:  # K1 and K2 on the multistream path, at its shapes
-            e["multistream"] = batched[e["name"]]
+        if e["name"] in batched[MS_STREAMS]:  # K1 and K2 on the multistream path, at its shapes
+            e["multistream"] = batched[MS_STREAMS][e["name"]]
+            e["multistream"]["tracking_launches"] = bench_counts["tracking"][e["name"]]
+            e["multistream"]["tracking"] = batched[TRACKING_STREAMS][e["name"]]
+            e["bench_single_launches"] = bench_counts["single"][e["name"]]
             e["loop_closure_launches"] = {mode: c[e["name"]] for mode, c in loop_counts.items()}
             e["cli_launches"] = {run: c[e["name"]] for run, c in cli_counts.items()}
             e["distributed_launches"] = {

@@ -38,6 +38,11 @@ class Camera:
             width=cfg.image_width, height=cfg.image_height,
         )
 
+    @property
+    def matrix(self) -> torch.Tensor:
+        """3x3 float32 intrinsics K (``camera.h:48-50``)."""
+        return torch.tensor([[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]], dtype=torch.float32)
+
 
 def world2camera(p_w: torch.Tensor, T_c_w: torch.Tensor) -> torch.Tensor:
     return se3.apply(T_c_w, p_w)

@@ -68,6 +68,17 @@ class VOState:
     def mp_alive(self) -> torch.Tensor:
         return self.mp_valid & ~self.mp_outlier
 
+    @property
+    def mp_obs_count(self) -> torch.Tensor:
+        """``[C]`` int32: valid observations of each map point."""
+        return torch.sum(self.obs_valid, dim=-1, dtype=torch.int32)
+
+    @property
+    def obs_capacity(self) -> tuple[int, int]:
+        """``(C, M)`` pool capacities (observation planes are ``[C, M]``)."""
+        C, M = self.obs_kf.shape[-2:]
+        return C, M
+
     def replace(self, **kw) -> "VOState":
         return dataclasses.replace(self, **kw)
 
@@ -219,6 +230,25 @@ def incidence_from_obs(state: VOState) -> torch.Tensor:
     A = torch.zeros(K * C + 1, dtype=torch.int8, device=flat.device)
     A = A.scatter(0, flat, torch.ones_like(flat, dtype=torch.int8))  # out of place: vmaps
     return A[: K * C].reshape(K, C)
+
+
+def covisibility_weights(A: torch.Tensor) -> torch.Tensor:
+    """``W [K, K]`` int32 = ``A @ A^T``: shared-observation counts, the
+    weight map of ``Frame::allCovisibleKeyframeIdToWeight_``
+    (``src/frame.cpp:110-117``).  Exact in float32: counts stay below 2^24."""
+    Af = A.float()
+    return (Af @ Af.T).to(torch.int32)
+
+
+def active_covisible(state: VOState, A: torch.Tensor, kf, threshold: int) -> torch.Tensor:
+    """``[K]`` bool: valid keyframes sharing at least ``threshold``
+    observations with ``kf``, and ``kf`` itself (``mapmanager.cpp:17-19``):
+    one row of ``A @ A^T``."""
+    Af = A.float()
+    K = A.shape[0]
+    kf = torch.as_tensor(kf, device=A.device).long()
+    row = Af @ Af[kf]
+    return ((row >= threshold) | (torch.arange(K, device=A.device) == kf)) & state.kf_valid
 
 
 def tracking_map_mask(state: VOState, cfg, shard=None) -> torch.Tensor:

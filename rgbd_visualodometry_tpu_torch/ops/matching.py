@@ -175,3 +175,20 @@ def gate_matches(
     max_dis = torch.clamp_min(min_dis.float() * match_ratio, min_match_distance)
     matched = row_ok & (nn.distance.float() <= max_dis)
     return MatchResult(matched=matched, kp_index=nn.kp_index, distance=nn.distance, min_distance=min_dis)
+
+
+def match_descriptors(
+    cand_desc: torch.Tensor,
+    cand_mask: torch.Tensor,
+    kp_desc: torch.Tensor,
+    kp_mask: torch.Tensor,
+    match_ratio: float = 2.0,
+    min_match_distance: float = 30.0,
+) -> MatchResult:
+    """For every valid candidate row of the packed pool ``cand_desc [C, 8]``,
+    its nearest valid keypoint of ``kp_desc [N, 8]`` (K2) and the adaptive
+    distance gate: the JAX package's ``match_descriptors`` on the same
+    descriptors in its bipolar form (``flannMatcher_.match(candidateDescs,
+    currDescs)``, ``src/frontend.cpp:187``; several candidates may share a
+    keypoint)."""
+    return gate_matches(nearest_keypoints_packed(cand_desc, kp_desc, kp_mask), cand_mask, match_ratio, min_match_distance)

@@ -85,6 +85,28 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return r.reshape(q.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix ``[..., 3, 3]`` -> unit quaternion (w, x, y, z): the
+    four candidates (trace-dominant, then the largest diagonal term), each
+    computed and selected with ``torch.where``."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    s0 = torch.sqrt(torch.clamp_min(tr + 1.0, _EPS)) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], dim=-1)
+    s1 = torch.sqrt(torch.clamp_min(1.0 + m00 - m11 - m22, _EPS)) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], dim=-1)
+    s2 = torch.sqrt(torch.clamp_min(1.0 + m11 - m00 - m22, _EPS)) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], dim=-1)
+    s3 = torch.sqrt(torch.clamp_min(1.0 + m22 - m00 - m11, _EPS)) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], dim=-1)
+    c1 = (m00 > m11) & (m00 > m22)
+    c2 = m11 > m22
+    qd = torch.where(c1[..., None], q1, torch.where(c2[..., None], q2, q3))
+    return quat_normalize(torch.where((tr > 0.0)[..., None], q0, qd))
+
+
 def hat(w: torch.Tensor) -> torch.Tensor:
     wx, wy, wz = w.unbind(-1)
     zero = torch.zeros_like(wx)
@@ -174,6 +196,17 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
 
 def apply(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return quat_rotate(quat(T), p) + trans(T)
+
+
+def to_matrix(T: torch.Tensor) -> torch.Tensor:
+    """Pose -> homogeneous ``[..., 4, 4]`` matrix."""
+    bottom = torch.tensor([0.0, 0, 0, 1.0], dtype=T.dtype, device=T.device).expand(T.shape[:-1] + (1, 4))
+    return torch.cat([to_matrix34(T), bottom], dim=-2)
+
+
+def from_matrix(M: torch.Tensor) -> torch.Tensor:
+    """``[..., 3|4, 4]`` rigid matrix -> pose."""
+    return make(matrix_to_quat(M[..., :3, :3]), M[..., :3, 3])
 
 
 def to_matrix34(T: torch.Tensor) -> torch.Tensor:

@@ -135,6 +135,29 @@ def test_create_mappoints_matches(leaves5, n_outliers):
     assert_state_equal(ts, {k: np.asarray(v) for k, v in js._asdict().items()})
 
 
+def test_obs_count_and_capacity_match(leaves5):
+    js, ts = jax_state(leaves5), tms.state_from_numpy(leaves5, device="cpu")
+    got = ts.mp_obs_count
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(js.mp_obs_count))
+    assert ts.obs_capacity == js.obs_capacity == (4096, 8)
+    stacked = tms.stack_states([ts, ts])
+    assert stacked.obs_capacity == (4096, 8) and stacked.mp_obs_count.shape == (2, 4096)
+
+
+def test_covisibility_matches(leaves5):
+    js, ts = jax_state(leaves5), tms.state_from_numpy(leaves5, device="cpu")
+    want_w = np.asarray(jms.covisibility_weights(js.A_inc))
+    got_w = tms.covisibility_weights(ts.A_inc)
+    assert got_w.dtype == torch.int32
+    np.testing.assert_array_equal(got_w.numpy(), want_w)
+    assert want_w[0, 1] > 0
+    for kf in range(int(leaves5["num_kf"]) + 1):  # the last one: an empty slot
+        for threshold in (1, 15, int(want_w[0, 1]), 10**6):
+            want = np.asarray(jms.active_covisible(js, js.A_inc, jnp.int32(kf), threshold))
+            np.testing.assert_array_equal(tms.active_covisible(ts, ts.A_inc, kf, threshold).numpy(), want)
+
+
 def test_incidence_from_obs_matches(leaves5):
     want = np.asarray(jms.incidence_from_obs(jax_state(leaves5)))
     s = tms.state_from_numpy(leaves5, device="cpu")

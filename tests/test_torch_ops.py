@@ -83,6 +83,40 @@ def test_se3_matches():
         np.testing.assert_allclose(asnp(got), np.asarray(want), atol=2e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("branch", ["trace", "x", "y", "z"])
+def test_se3_matrix_forms_match(branch):
+    """``matrix_to_quat``, ``to_matrix``, ``from_matrix``: rotations whose
+    trace is positive, and rotations near pi about x, y or z (each of
+    ``matrix_to_quat``'s diagonal candidates)."""
+    rng = np.random.default_rng(11)
+    a = _poses(rng, 64, rot=0.3)
+    if branch != "trace":
+        axis = np.eye(3)["xyz".index(branch)]
+        rv = np.pi * 0.97 * axis + rng.normal(0, 0.05, (64, 3))
+        th = np.linalg.norm(rv, axis=1, keepdims=True)
+        a[:, :4] = np.concatenate([np.cos(th / 2), np.sin(th / 2) * rv / th], axis=1)
+    M = np.asarray(jse3.to_matrix(a))
+    np.testing.assert_allclose(asnp(tse3.to_matrix(t(a))), M, atol=2e-6)
+    want_q = np.asarray(jse3.matrix_to_quat(M[:, :3, :3]))
+    np.testing.assert_allclose(asnp(tse3.matrix_to_quat(t(M[:, :3, :3]))), want_q, atol=2e-6)
+    for m in (M, M[:, :3]):
+        np.testing.assert_allclose(asnp(tse3.from_matrix(t(m))), np.asarray(jse3.from_matrix(m)), atol=2e-6)
+    # the round trip recovers the pose up to the quaternion's sign
+    back = asnp(tse3.from_matrix(tse3.to_matrix(t(a))))
+    sign = np.sign(np.sum(back[:, :4] * a[:, :4], axis=1, keepdims=True))
+    np.testing.assert_allclose(back[:, :4] * sign, a[:, :4], atol=1e-5)
+
+
+def test_camera_matrix_matches():
+    from rgbd_visualodometry_tpu.config import VOConfig as JaxVOConfig
+    from rgbd_visualodometry_tpu_torch.config import VOConfig
+
+    for tcfg, jcfg in (small_cfgs(), (VOConfig(), JaxVOConfig())):
+        got = tcam.Camera.from_config(tcfg).matrix
+        assert got.dtype == torch.float32 and got.shape == (3, 3)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jcam.Camera.from_config(jcfg).matrix))
+
+
 def test_camera_matches():
     jc_cfg = small_cfgs()[1]
     jc, tc = jcam.Camera.from_config(jc_cfg), tcam.Camera.from_config(small_cfgs()[0])
@@ -372,3 +406,25 @@ def test_gate_matches_matches():
     got = tmatch.gate_matches(tmatch.NearestKeypoints(t(kpi), t(dist)), t(cand), 2.0, 30.0)
     np.testing.assert_array_equal(asnp(got.matched), np.asarray(want.matched))
     assert int(got.min_distance) == int(want.min_distance)
+
+
+@pytest.mark.parametrize("n_cand,n_kp,p_dup", [(2000, 300, 0.3), (512, 37, 0.0), (100, 500, 1.0)])
+def test_match_descriptors_matches(n_cand, n_kp, p_dup):
+    """The port's ``match_descriptors`` on packed words equals the JAX
+    function on the same descriptors as bipolar rows."""
+    from rgbd_visualodometry_tpu.ops.pallas_match import unpack_bipolar
+
+    rng = np.random.default_rng(n_cand)
+    kp = rng.integers(0, 2**32, (n_kp, 8), dtype=np.uint64).astype(np.uint32)
+    cand = rng.integers(0, 2**32, (n_cand, 8), dtype=np.uint64).astype(np.uint32)
+    dup = rng.random(n_cand) < p_dup  # near copies of keypoints: a few flipped bits
+    src = kp[rng.integers(0, n_kp, n_cand)]
+    flips = np.uint32(1) << rng.integers(0, 32, (n_cand, 8)).astype(np.uint32)
+    cand[dup] = (src ^ (flips * (rng.random((n_cand, 8)) < 0.3)))[dup]
+    cand_mask, kp_mask = rng.random(n_cand) < 0.8, rng.random(n_kp) < 0.9
+    want = jmatch.match_descriptors(unpack_bipolar(jnp.asarray(cand)), cand_mask, unpack_bipolar(jnp.asarray(kp)), kp_mask)
+    got = tmatch.match_descriptors(t(cand.view(np.int32)), t(cand_mask), t(kp.view(np.int32)), t(kp_mask))
+    for field in ("matched", "kp_index", "distance"):
+        np.testing.assert_array_equal(asnp(getattr(got, field)), np.asarray(getattr(want, field)), err_msg=field)
+    assert int(got.min_distance) == int(want.min_distance)
+    assert 0 < asnp(got.matched).sum() or p_dup == 0.0

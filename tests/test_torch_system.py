@@ -19,7 +19,9 @@ poses and points differ in the last bits and tracking inherits that), the
 port's ATE at most 1.05x the JAX package's + 0.5 mm and < 2 cm.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -255,6 +257,12 @@ def test_chip_smoke_runs_the_bench_workload():
     assert dataclasses.asdict(chip_smoke.multistream_config()) == dataclasses.asdict(ms)
     assert ms.packed_matching and ms.enable_local_optimization and ms.ba_min_frame_gap == 14
     assert (chip_smoke.MS_STREAMS, chip_smoke.MS_WARMUP) == (bench.FULL_VO_STREAMS, bench.WARMUP_FRAMES)
+    assert chip_smoke.TRACKING_STREAMS == bench.TRACKING_STREAMS
+    # the bench phase's result line carries bench.py's keys, in its order
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        bench._Reporter().add({"median": 2.0, "best": 2.5, "passes": 1}, 3.45, "single-stream full VO")
+    assert list(json.loads(text.getvalue())) == chip_smoke.BENCH_KEYS
     for a, b in zip(chip_smoke.make_frames(got, 3), bench._make_frames(want, 3)):
         assert a.timestamp == b.timestamp
         np.testing.assert_array_equal(a.rgb, b.rgb)
