@@ -55,10 +55,26 @@
    once with at least one relaxation that found loop or appearance edges
    and acted, write a trajectory file equal to the corrected in-memory
    poses (1e-6), keep every pose finite, and launch K1 and K2 once per
-   frame.  Printed, not asserted: each acting relaxation's streamed ATE
-   before and after it, the edge counts, the relax wall and stage times,
-   and in the async run the median frame time beside the frame time while
-   a relaxation is in flight.
+   frame; in the async run every relaxation the worker computed must
+   equal ``compute_relaxation`` called again on a clone of its snapshot,
+   to the bit.  Printed, not asserted: each acting relaxation's streamed
+   ATE before and after it, the edge counts, the relax wall and stage
+   times, in the async run the median frame time beside the frame time
+   while a relaxation is in flight, and in both the non-stalling
+   contract's numbers (spikes, total over frames x median).
+   Then the stall-contract step: the JAX package's tier-1
+   ``test_async_relax_does_not_stall_frame_loop`` on the card
+   (:func:`contract_config`, its 320x240 config field for field, over the
+   same faulted circuit at 320x240): a warm-up instance whose relaxations
+   must equal ``compute_relaxation`` on their snapshots to the bit, then a
+   timed instance, its frame clock around the generator's ``yield`` as the
+   test's, the counts reset just before.  Per frame it prints the wall
+   time, whether a relaxation was in flight, and for those frames the
+   time in the blocking record reads, in the relaxation's start and
+   finish, and the rest.  Asserted as the test writes them: at least 3
+   relaxations, at most 2 frames after frame 8 slower than 3 x median +
+   50 ms, their total at most 1.6 x frames x median + 3 s; and every
+   frame tracked, the file equal to memory, K1 and K2 once per frame.
 5c. CLI phase: the user-facing surfaces, driven in this process through
    ``cli.main`` on ``configs/default.yaml`` (640x480, fr1 intrinsics, 500
    features over 8 levels, local BA, the default capacities): (a)
@@ -142,7 +158,7 @@
    outputs at the main path's shapes.  K1 and K2 also carry a
    ``multistream`` entry: the same keys at the batched shapes, with
    ``launches`` from step 6, ``loop_closure_launches``, their counts in
-   the two runs of step 5b, ``cli_launches``, their counts in the four
+   the two runs of step 5b and its stall-contract step, ``cli_launches``, their counts in the four
    tracking runs of step 5c, ``distributed_launches``, their counts on
    each rank in step 6b, and ``bench_single_launches``, their count in
    step 5d's single-stream run; the ``multistream`` entry holds
@@ -176,6 +192,7 @@ MS_WARMUP = 12  # bench.WARMUP_FRAMES
 MS_MEASURED = 12
 TRACKING_STREAMS = 32  # bench.TRACKING_STREAMS
 LOOP_FRAMES = 64  # tests/test_loopclosure.py::test_online_relax_fullres_closed_loop
+CONTRACT_SKIP = 8  # frames the non-stalling contract leaves out (tests/test_loopclosure.py:686)
 CLI_FRAMES = 60
 TUM_FRAMES = 30
 VIEWER_FRAMES = 10
@@ -689,7 +706,7 @@ def _relax_stage_timers(stages: dict):
     patched = []
     for mod, name, label in ((globalopt.loopclosure, "build_coobservation_graph", "co-observation graph"),
                              (globalopt.loopclosure, "build_appearance_graph", "appearance graph"),
-                             (globalopt.posegraph, "optimize_pose_graph", "solve"),
+                             (globalopt.posegraph, "optimize_pose_graph_graphed", "solve"),
                              (globalopt, "apply_relaxation", "apply")):
         fn = getattr(mod, name)
 
@@ -714,8 +731,14 @@ def loop_phase(cfg, frames, depths, dev, relax_async: bool) -> dict:
     trajectory file equals the corrected in-memory poses, that every pose is
     finite, and that K1 and K2 launched once per frame.  Prints each acting
     relaxation's streamed ATE before and after it, its edge counts, its
-    stage times (synchronous run) and the frame times with and without a
-    relaxation in flight (asynchronous run).  Returns the launch counts."""
+    stage times (synchronous run), the frame times with and without a
+    relaxation in flight (asynchronous run) and the non-stalling contract's
+    numbers (:func:`stall_numbers`; its limits belong to the 320x240
+    scenario of :func:`stall_contract_phase`).  In the asynchronous run
+    every relaxation the worker computed must equal ``compute_relaxation``
+    on its snapshot to the bit, and in both every call through
+    ``ops.replay`` (captured and replayed after the first at a shape) the
+    eager call, and every solve the eager solve on the unpadded graph.  Returns the launch counts."""
     import tempfile
 
     import numpy as np
@@ -748,11 +771,14 @@ def loop_phase(cfg, frames, depths, dev, relax_async: bool) -> dict:
         relaxes.append((ts, ps, rep, time.perf_counter() - t0))
         return rep
 
+    applied = []
+
     def spied_finish(wait=False):
         ts, ps = streamed()
         rlx = finish(wait)
         if rlx is not None:
             relaxes.append((ts, ps, rlx.report, None))
+            applied.append(rlx)
         return rlx
 
     vo.global_relax, vo._finish_async_relax = spied_relax, spied_finish
@@ -768,7 +794,15 @@ def loop_phase(cfg, frames, depths, dev, relax_async: bool) -> dict:
         stamps.append(time.perf_counter())
 
     stages: dict = {}
-    restore = _relax_stage_timers(stages) if not relax_async else (lambda: None)
+    replays, restore_replays = _spy_replays()
+    if relax_async:
+        kept, restore_relax = _spy_relaxations()
+    else:
+        restore_relax = _relax_stage_timers(stages)
+
+    def restore():
+        restore_relax()
+        restore_replays()
     with tempfile.TemporaryDirectory() as tmp:
         traj = os.path.join(tmp, "traj.txt")
         kernels.reset_counts()
@@ -808,6 +842,10 @@ def loop_phase(cfg, frames, depths, dev, relax_async: bool) -> dict:
     print(f"  frame time median {med:.1f} ms over frames {WARMUP_FRAMES}-{len(frames) - 1}, max {1e3 * frame_s.max():.1f} ms"
           + (f"; with a relaxation in flight: median {statistics.median(busy):.1f} ms over {len(busy)} frames"
              if busy else ""))
+    print(f"  the non-stalling contract's numbers (printed, not asserted at 640x480): {_stall_line(frame_s)}")
+    if relax_async:
+        _check_relaxations(name, kept, applied)
+    _check_replays(name, replays)
     if len(results) != len(frames) or tracked != len(frames):
         raise AssertionError(f"{name}: tracked {tracked} of {len(frames)} frames")
     if vo.num_auto_relaxes < 1 or not acted:
@@ -819,6 +857,355 @@ def loop_phase(cfg, frames, depths, dev, relax_async: bool) -> dict:
     if counts["fast_nms"] != len(frames) or counts["hamming_nn"] != len(frames):
         raise AssertionError(f"{name}: launches {counts}, expected fast_nms and hamming_nn {len(frames)} times each")
     return counts
+
+
+def contract_config():
+    """The config of the JAX package's tier-1
+    ``tests/test_loopclosure.py::test_async_relax_does_not_stall_frame_loop``
+    (``:635-643``), field for field: 320x240, 300 features over 4 levels,
+    32 keyframes, local BA, a relaxation every 6 keyframes on the worker
+    thread, a 1 s loop gap."""
+    from rgbd_visualodometry_tpu_torch import VOConfig
+
+    return VOConfig(
+        image_width=320, image_height=240,
+        camera_fx=258.6, camera_fy=258.2, camera_cx=159.3, camera_cy=127.6,
+        number_of_features=300, level_pyramid=4,
+        max_keyframes=32, max_mappoints=4096, max_obs_per_mappoint=8,
+        pnp_max_points=512, triangulation_batch=128, ransac_hypotheses=64,
+        ba_max_poses=8, ba_max_points=1024,
+        relax_every_kf=6, relax_loop_gap_s=1.0, relax_async=True,
+    )
+
+
+def stall_numbers(frame_s) -> dict:
+    """The reference's non-stalling contract (``tests/test_loopclosure.py:686-702``)
+    read on per-frame wall times: over the frames after the first 8, the
+    median, the spikes (frames slower than 3 x median + 50 ms; at most 2
+    pass), the total and its limit (1.6 x frames x median + 3 s), and the
+    total over frames x median."""
+    steady = list(frame_s[CONTRACT_SKIP:])
+    med = statistics.median(steady)
+    return dict(median_s=med, spikes_s=[t for t in steady if t > 3.0 * med + 0.05], total_s=sum(steady),
+                limit_s=1.6 * len(steady) * med + 3.0, ratio=sum(steady) / (len(steady) * med))
+
+
+def _stall_line(frame_s) -> str:
+    st = stall_numbers(frame_s)
+    return (f"median {1e3 * st['median_s']:.1f} ms over frames {CONTRACT_SKIP}-{len(frame_s) - 1}, "
+            f"{len(st['spikes_s'])} spikes > 3 x median + 50 ms {[round(1e3 * float(t), 1) for t in st['spikes_s']]} ms, "
+            f"total {st['total_s']:.2f} s of limit {st['limit_s']:.2f} s ({st['ratio']:.3f} x frames x median)")
+
+
+def _spy_relaxations():
+    """Patch ``globalopt.compute_relaxation`` so that each call on the async
+    worker thread keeps a clone of the snapshot it was given (taken on the
+    worker's stream, before it computes), its config and keyword arguments
+    and the relaxation it returned.  Returns ``(kept, restore)``."""
+    import threading
+
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from rgbd_visualodometry_tpu_torch.pipeline import globalopt
+
+    real, kept = globalopt.compute_relaxation, []
+
+    def spied(state, cfg, **kw):
+        if threading.current_thread().name != "vo-relax":
+            return real(state, cfg, **kw)
+        snap = pytree.tree_map(torch.clone, state)
+        rlx = real(state, cfg, **kw)
+        kept.append((snap, cfg, kw, rlx))
+        return rlx
+
+    globalopt.compute_relaxation = spied
+    return kept, lambda: setattr(globalopt, "compute_relaxation", real)
+
+
+def relaxation_mismatches(kept, applied) -> list[str]:
+    """Hold every relaxation that the async run applied to
+    ``compute_relaxation`` called again, on this thread and stream, on the
+    worker's snapshot (:func:`_spy_relaxations`): ``delta_w``,
+    ``snap_valid``, ``snap_ts``, ``ref_delta_w`` and every field of the
+    report equal to the bit.  Returns what differs."""
+    import numpy as np
+    import torch
+
+    from rgbd_visualodometry_tpu_torch.pipeline import globalopt
+
+    torch.cuda.synchronize()
+    if [id(r) for *_, r in kept] != [id(r) for r in applied]:
+        return [f"the run consumed {len(applied)} relaxations, the worker computed {len(kept)}"]
+    bad = []
+    for n, (snap, cfg, kw, got) in enumerate(kept):
+        want = globalopt.compute_relaxation(snap, cfg, **kw)
+        torch.cuda.synchronize()
+        for f in ("delta_w", "snap_valid", "snap_ts", "ref_delta_w"):
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                bad.append(f"relaxation {n}: {f}")
+        for f, x in vars(got.report).items():
+            y = getattr(want.report, f)
+            if not (np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y):
+                bad.append(f"relaxation {n}: report.{f}")
+    return bad
+
+
+def _check_relaxations(name, kept, applied) -> None:
+    bad = relaxation_mismatches(kept, applied)
+    acting = sum(bool(r.report.kf_ts.size) for r in applied)
+    print(f"{name}: {len(applied)} relaxations from the worker ({acting} acting), "
+          + (f"NOT equal to compute_relaxation on their snapshots: {bad}" if bad
+             else "each equal to the bit to compute_relaxation on its snapshot"))
+    if bad:
+        raise AssertionError(f"{name}: the async relaxations differ from compute_relaxation: {bad}")
+
+
+def _spy_replays():
+    """Patch ``ops.replay.replayed`` (through which ``compute_relaxation``
+    runs its solve and its appearance pair registration on the card) to
+    keep clones of every call's inputs and its outputs.  Returns ``(calls,
+    restore)``."""
+    try:
+        from rgbd_visualodometry_tpu_torch.ops import replay
+    except ImportError:  # a tree from before the replays (tools/port_ab.py): nothing to hold
+        return [], lambda: None
+    real, calls = replay.replayed, []
+
+    def spied(fn, *args, **kw):
+        out = real(fn, *args, **kw)
+        calls.append((fn, [a.clone() for a in args], kw, out))
+        return out
+
+    replay.replayed = spied
+    return calls, lambda: setattr(replay, "replayed", real)
+
+
+def replay_mismatches(calls) -> list[str]:
+    """Hold every call of :func:`_spy_replays` (eager at a new shape,
+    captured at the next call or after the async worker, then replayed) to
+    its function called eagerly on the same inputs, and every pose-graph solve (on the graph padded to its bucket)
+    also to the eager solve on the unpadded graph, its valid edges, which
+    come first: equal to the bit.  Returns what differs."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from rgbd_visualodometry_tpu_torch.ops import posegraph
+
+    torch.cuda.synchronize()
+    bad = []
+    for n, (fn, args, kw, got) in enumerate(calls):
+        wants = {"eager": fn(*args, **kw)}
+        if fn is posegraph._optimize_flat:
+            e = int(args[5].sum())
+            wants["eager, unpadded"] = fn(args[0], *(a[:e] for a in args[1:6]), args[6], **kw)
+        torch.cuda.synchronize()
+        for label, want in wants.items():
+            if not all(torch.equal(g, w) for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want))):
+                bad.append(f"{fn.__name__} call {n} {[tuple(a.shape) for a in args[:2]]} vs {label}")
+    return bad
+
+
+def _check_replays(name, calls) -> None:
+    bad = replay_mismatches(calls)
+    solves = sum(fn.__name__ == "_optimize_flat" for fn, *_ in calls)
+    print(f"{name}: {len(calls)} calls through ops.replay ({solves} solves; eager at a new shape, then "
+          f"captured and replayed), " + (f"NOT equal to eager: {bad}" if bad else
+                               "each equal to the bit to the eager call, and each solve to the unpadded one"))
+    if bad:
+        raise AssertionError(f"{name}: a replayed call differs from the eager one: {bad}")
+
+
+def _worker_stage_timers():
+    """Host timers (no synchronise) around the relaxation's stages when
+    they run on the async worker thread: the co-observation graph, the
+    appearance graph, the solve and the whole ``compute_relaxation``.
+    Returns ``(records [(stage, seconds)], restore)``."""
+    import threading
+
+    from rgbd_visualodometry_tpu_torch.pipeline import globalopt
+
+    records, patched = [], []
+    solve = "optimize_pose_graph_graphed" if hasattr(globalopt.posegraph, "optimize_pose_graph_graphed") \
+        else "optimize_pose_graph"
+    for mod, name, label in ((globalopt.loopclosure, "build_coobservation_graph", "co-observation"),
+                             (globalopt.loopclosure, "build_appearance_graph", "appearance"),
+                             (globalopt.posegraph, solve, "solve"),
+                             (globalopt, "compute_relaxation", "total")):
+        fn = getattr(mod, name)
+
+        def timed(*a, _fn=fn, _label=label, **k):
+            if threading.current_thread().name != "vo-relax":
+                return _fn(*a, **k)
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                records.append((_label, time.perf_counter() - t))
+
+        setattr(mod, name, timed)
+        patched.append((mod, name, fn))
+    return records, lambda: [setattr(mod, name, fn) for mod, name, fn in patched]
+
+
+def stall_contract_run(dev) -> dict:
+    """The JAX package's tier-1 ``test_async_relax_does_not_stall_frame_loop``
+    on the card: :func:`contract_config` over the 64-frame faulted circuit
+    (:func:`loop_frames`), a warm-up instance, then a timed instance whose
+    frame clock runs around the generator's ``yield`` as the test's does
+    (``:668-673``, no synchronise: it includes the lagged record reads and
+    the relaxations' start and finish).  The warm-up's relaxations are
+    held to the bit to ``compute_relaxation`` on their snapshots; the
+    launch counts are reset just before the timed run.  Per frame of the
+    timed run: its wall time, whether a relaxation was in flight, the time
+    of the blocking record reads (``out.packed.cpu()``, read once more
+    before ``_materialize`` reads it) and of ``_start_async_relax`` and
+    ``_finish_async_relax``.  Returns the numbers and the list of
+    failures: the contract's three assertions as the test writes them,
+    every frame tracked, the file equal to memory, K1 and K2 once per
+    frame, and the relaxations' bit-equality."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import VisualOdometry, kernels
+    from rgbd_visualodometry_tpu_torch.evaltools import ate_rmse
+    from rgbd_visualodometry_tpu_torch.io.synthetic import _pose_inverse as pose_inverse
+    from rgbd_visualodometry_tpu_torch.io.trajectory import read_trajectory
+
+    cfg = contract_config()
+    frames, depths = loop_frames(cfg)
+    feed = [(f.rgb, d, f.timestamp) for f, d in zip(frames, depths)]
+    t0 = time.perf_counter()
+    warm = VisualOdometry(cfg, device=dev)
+    applied, finish = [], warm._finish_async_relax
+
+    def spied_finish(wait=False):
+        rlx = finish(wait)
+        if rlx is not None:
+            applied.append(rlx)
+        return rlx
+
+    warm._finish_async_relax = spied_finish
+    kept, restore = _spy_relaxations()
+    replays, restore_replays = _spy_replays()
+    try:
+        warm.run(iter(feed))
+    finally:
+        restore_replays()
+        restore()
+    mismatches = relaxation_mismatches(kept, applied) + replay_mismatches(replays)
+    out = dict(warm_s=time.perf_counter() - t0, warm_relaxations=len(applied), warm_replays=len(replays),
+               warm_acting=sum(bool(r.report.kf_ts.size) for r in applied), mismatches=mismatches)
+    del warm, kept, applied, spied_finish, replays
+
+    vo = VisualOdometry(cfg, device=dev)
+    frame_s, in_flight, read_s, hook_s = [], [], [], []
+    materialize = vo._materialize
+
+    def read_first(ts, step_out, *rest):
+        t = time.perf_counter()
+        step_out.packed.cpu()  # the blocking read alone; _materialize's own copy is then immediate
+        read_s[-1] += time.perf_counter() - t
+        return materialize(ts, step_out, *rest)
+
+    def timed(fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                hook_s[-1] += time.perf_counter() - t
+        return call
+
+    vo._materialize = read_first
+    vo._start_async_relax, vo._finish_async_relax = timed(vo._start_async_relax), timed(vo._finish_async_relax)
+
+    def stream():
+        last = time.perf_counter()
+        for item in feed:
+            read_s.append(0.0)
+            hook_s.append(0.0)
+            busy = vo._relax_thread is not None
+            yield item
+            now = time.perf_counter()
+            frame_s.append(now - last)
+            in_flight.append(busy or vo._relax_thread is not None)
+            last = now
+        read_s.append(0.0)  # the run's close: final flush and relaxation
+        hook_s.append(0.0)
+
+    stages, restore = _worker_stage_timers()
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = os.path.join(tmp, "traj.txt")
+        kernels.reset_counts()
+        try:
+            results = vo.run(stream(), trajectory_path=traj)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        counts = kernels.counts()
+        file_ts, file_poses = read_trajectory(traj)
+    entries = vo._trajectory_entries()
+    est = np.asarray([r.pose_w_c for r in results])
+    gt_xyz = np.asarray([pose_inverse(f.T_c_w)[4:7] for f in frames])
+    tracked = sum(r.tracked for r in results)
+    st = stall_numbers(frame_s)
+    worker = [{}]  # per relaxation on the worker: stage -> host s
+    for label, sec in stages:
+        worker[-1][label] = worker[-1].get(label, 0.0) + sec
+        if label == "total":
+            worker.append({})
+    out.update(st, frame_s=frame_s, in_flight=in_flight, read_s=read_s[:len(frame_s)], hook_s=hook_s[:len(frame_s)],
+               worker_stages_s=worker[:-1], relaxations=vo.num_auto_relaxes, tracked=tracked, launches=counts,
+               ate_m=ate_rmse([r.timestamp for r in results], est[:, 4:7], [f.timestamp for f in frames], gt_xyz))
+    failures = [f"a relaxation or solve differs from its synchronous or eager recomputation: {m}" for m in mismatches]
+    if tracked != len(frames) or len(results) != len(frames):
+        failures.append(f"tracked {tracked} of {len(frames)} frames")
+    if vo.num_auto_relaxes < 3:
+        failures.append(f"{vo.num_auto_relaxes} relaxations: too few relaxes to exercise the contract (>= 3)")
+    if len(st["spikes_s"]) > 2:
+        failures.append(f"async relax stalled the loop {len(st['spikes_s'])} times (at most 2)")
+    if st["total_s"] > st["limit_s"]:
+        failures.append(f"aggregate overhead too high: {st['total_s']:.2f} s > {st['limit_s']:.2f} s")
+    if len(file_ts) != len(entries) or not np.allclose(file_poses, np.asarray([p for _, p in entries]), atol=1e-6):
+        failures.append("the trajectory file differs from the corrected in-memory poses")
+    if counts["fast_nms"] != len(frames) or counts["hamming_nn"] != len(frames):
+        failures.append(f"launches {counts}, expected fast_nms and hamming_nn {len(frames)} times each")
+    out["failures"] = failures
+    return out
+
+
+def stall_contract_phase(dev) -> dict:
+    """Print :func:`stall_contract_run`, frame by frame, and raise on any of
+    its failures.  Returns the timed run's launch counts."""
+    name = "stall contract (320x240 async, the JAX package's tier-1 test)"
+    r = stall_contract_run(dev)
+    print(f"{name}: warm-up instance {r['warm_s']:.1f} s, {r['warm_relaxations']} relaxations from the worker "
+          f"({r['warm_acting']} acting), {r['warm_replays']} calls through ops.replay, "
+          + (f"NOT equal to compute_relaxation on their snapshots, or to eager calls: {r['mismatches']}"
+             if r["mismatches"] else "each relaxation equal to the bit to compute_relaxation on its snapshot, "
+             "each replayed call to the eager one, each solve to the unpadded one"))
+    for n, st in enumerate(r["worker_stages_s"]):
+        print(f"  relaxation {n} on the worker (host time): "
+              + ", ".join(f"{label} {1e3 * sec:.1f} ms" for label, sec in st.items()))
+    for k, (s, busy, rd, hk) in enumerate(zip(r["frame_s"], r["in_flight"], r["read_s"], r["hook_s"])):
+        print(f"  frame {k}: {1e3 * s:.1f} ms"
+              + (f", relaxation in flight: record reads {1e3 * rd:.1f} ms, relax start/finish {1e3 * hk:.1f} ms, "
+                 f"the rest {1e3 * (s - rd - hk):.1f} ms" if busy else f" (record reads {1e3 * rd:.1f} ms)"))
+    steady = range(CONTRACT_SKIP, len(r["frame_s"]))
+    busy = [k for k in steady if r["in_flight"][k]]
+    calm = [k for k in steady if not r["in_flight"][k]]
+    med = lambda key, ks: 1e3 * statistics.median([r[key][k] for k in ks]) if ks else float("nan")  # noqa: E731
+    print(f"{name}: {r['tracked']}/{len(r['frame_s'])} tracked, {r['relaxations']} relaxations, ATE "
+          f"{100 * r['ate_m']:.3f} cm (printed; the test's 5 cm bound is not part of the contract here); "
+          f"{_stall_line(r['frame_s'])}; frames {CONTRACT_SKIP}+ with a relaxation in flight: {len(busy)}, median "
+          f"{med('frame_s', busy):.1f} ms (record reads {med('read_s', busy):.1f} ms), without: {len(calm)}, median "
+          f"{med('frame_s', calm):.1f} ms (record reads {med('read_s', calm):.1f} ms); launches {r['launches']}")
+    if r["failures"]:
+        raise AssertionError(f"{name}: {r['failures']}")
+    return r["launches"]
 
 
 def offline_relax(run, frames):
@@ -1867,6 +2254,7 @@ def main() -> int:
     print(f"rendered the {len(circuit)}-frame loop circuit in {time.perf_counter() - t0:.1f} s")
     loop_counts = {mode: loop_phase(lcfg, circuit, depths, dev, relax_async=mode == "async") for mode in ("sync", "async")}
     del circuit, depths
+    loop_counts["stall_contract"] = stall_contract_phase(dev)
     cli_counts = cli_phase(dev)
     bench_counts = bench_phase(smi, dev)
     profiling = "--profile" in sys.argv[1:]

@@ -19,12 +19,14 @@ The moments and the pair registration run on the state's device; the pair
 ranking, the bit histogram, the feature table and the edge compaction are
 host numpy, copied from the reference.  Where the reference pads or chunks
 for XLA (the C-minor transposes and ``lax.scan`` chunks of the moments, the
-bucketed Kabsch batch, the padded pair chunks) the port pads nothing: the
-moments are one ``index_add_`` over the ``[C, M, M]`` pair items that hold
-a correspondence (atomic on CUDA, so the float sums vary in the last bits;
-the counts are integers below 2**24 and exact), the Kabsch solve one batch
-over the compacted edges, and the pairs register in chunks only to bound
-their ``[P, F, F]`` distance transient.
+bucketed Kabsch batch, the padded pair chunks) the port pads only what a
+captured CUDA graph needs: the moments are one accumulation over the
+``[C, M, M]`` pair items that hold a correspondence (in item order, so a
+snapshot relaxes to the same bits every time; the counts are integers
+below 2**24 and exact), the Kabsch solve one batch over the compacted
+edges, and the pairs register in chunks that bound their ``[P, F, F]``
+distance transient; on CUDA every chunk is filled to ``chunk_pairs`` and
+replayed from one captured graph (``ops.replay``).
 
 Edge weights are the clamped co-observation counts: the pose-graph solver
 needs weights bounded relative to the odometry chain
@@ -33,11 +35,13 @@ needs weights bounded relative to the odometry chain
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from rgbd_visualodometry_tpu_torch import camera as camera_mod
-from rgbd_visualodometry_tpu_torch.ops import se3
+from rgbd_visualodometry_tpu_torch.ops import replay, se3
 from rgbd_visualodometry_tpu_torch.ops.posegraph import PoseGraph
 from rgbd_visualodometry_tpu_torch.ops.smalleig import horn_quat_from_crosscov
 
@@ -70,7 +74,13 @@ def coobservation_moments(state, cam):
         [torch.ones_like(a[:, :1]), a, b, (b[:, :, None] * a[:, None, :]).reshape(-1, 9)], dim=1
     )
     acc = torch.zeros((K * K, 16), dtype=torch.float32, device=p.device)
-    acc.index_add_(0, kf[c, m1] * K + kf[c, m2], items)
+    pair = kf[c, m1] * K + kf[c, m2]
+    if acc.is_cuda:
+        # index_add_ adds atomically there, in a different order every run;
+        # index_put_ sorts the items by pair (stably) and sums each run
+        acc.index_put_((pair,), items, accumulate=True)
+    else:
+        acc.index_add_(0, pair, items)  # in item order; index_put_ splits over threads here
     acc = acc.reshape(K, K, 16)
     return acc[..., 0], acc[..., 1:4], acc[..., 4:7], acc[..., 7:].reshape(K, K, 3, 3)
 
@@ -274,14 +284,22 @@ def build_appearance_graph(
     val_d = torch.from_numpy(val).to(dev)
     poses, inls = [], []
     for s in range(0, len(pairs), int(chunk_pairs)):
-        ci = torch.from_numpy(ii[s : s + int(chunk_pairs)]).to(dev)
-        cj = torch.from_numpy(jj[s : s + int(chunk_pairs)]).to(dev)
-        pose, inl, _ = _register_pairs(
+        ci, cj = ii[s : s + int(chunk_pairs)], jj[s : s + int(chunk_pairs)]
+        n = ci.size
+        register = _register_pairs
+        if dev.type == "cuda":
+            # every chunk at full size (the last one's pairs repeated), so
+            # that one captured graph replays it (ops.replay)
+            ci, cj = np.resize(ci, int(chunk_pairs)), np.resize(cj, int(chunk_pairs))
+            register = functools.partial(replay.replayed, _register_pairs)
+        ci, cj = torch.from_numpy(ci).to(dev), torch.from_numpy(cj).to(dev)
+        pose, inl, _ = register(
             desc_d[ci], pts_d[ci], val_d[ci], desc_d[cj], pts_d[cj], val_d[cj],
-            float(match_ratio), float(min_match_distance), float(inlier_radius),
+            match_ratio=float(match_ratio), min_match_distance=float(min_match_distance),
+            inlier_radius=float(inlier_radius),
         )
-        poses.append(pose)
-        inls.append(inl)
+        poses.append(pose[:n])
+        inls.append(inl[:n])
     poses = torch.cat(poses)
     inls = torch.cat(inls).cpu().numpy()
     keep = inls >= int(min_inliers)

@@ -20,6 +20,11 @@ damped Gauss-Newton on the SE(3) manifold.  Poses are ``T_w_c`` rows
   lower triangle as ``jax.scipy.linalg.cho_factor`` does (no
   symmetrisation).
 - The iteration count is fixed; ``lax.fori_loop`` becomes a Python loop.
+- On CUDA :func:`optimize_pose_graph_graphed` replays the solve as one CUDA
+  graph per shape (``ops.replay``), as the JAX package reuses one compiled
+  executable per edge bucket (``pad_graph``): a few host calls where the
+  eager solve issues thousands of launches from Python, which would hold
+  the interpreter lock against a frame loop on another thread.
 
 Known limitation (``tests/test_posegraph.py``): edge weights must stay
 bounded relative to the odometry chain; a wrong edge whose weight dwarfs
@@ -32,7 +37,7 @@ from typing import NamedTuple
 
 import torch
 
-from rgbd_visualodometry_tpu_torch.ops import se3
+from rgbd_visualodometry_tpu_torch.ops import replay, se3
 
 
 class PoseGraph(NamedTuple):
@@ -70,8 +75,11 @@ def concat_graphs(a: PoseGraph, b: PoseGraph) -> PoseGraph:
 def pad_graph(graph: PoseGraph, capacity: int) -> PoseGraph:
     """The edge list padded to exactly ``capacity`` rows with zero-weight,
     invalid identity edges, which change no sum.  The JAX package pads so
-    that XLA reuses one compiled solver; the port's solver needs no padding
-    and does not call this."""
+    that XLA reuses one compiled solver, the port on CUDA so that a captured
+    CUDA graph is replayed (:func:`optimize_pose_graph_graphed`); there the
+    solve on the padded graph equals the unpadded one to the bit.  On the
+    CPU the rows that fall in a vectorised loop's scalar tail round
+    otherwise, so the padded solve agrees only to float32 rounding."""
     e = int(graph.edge_i.shape[0])
     if e > capacity:
         raise ValueError(f"graph has {e} edges > capacity {capacity}")
@@ -219,3 +227,27 @@ def optimize_pose_graph(
     for _ in range(num_iterations - half):
         cur = step(cur, keep)
     return cur
+
+
+def _optimize_flat(poses, edge_i, edge_j, edge_meas, edge_weight, edge_valid, fixed, **kw):
+    return optimize_pose_graph(poses, PoseGraph(edge_i, edge_j, edge_meas, edge_weight, edge_valid), fixed=fixed, **kw)
+
+
+def optimize_pose_graph_graphed(
+    poses: torch.Tensor,
+    graph: PoseGraph,
+    num_iterations: int = 10,
+    damping: float = 1e-6,
+    robust_delta: float = 0.0,
+    fixed: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """:func:`optimize_pose_graph` on CUDA tensors, replayed from one
+    captured CUDA graph per shape ``(K, E)`` (``ops.replay``); equal to it
+    to the bit.  Pad the graph to its ``edge_bucket`` so that a growing
+    graph reuses one capture."""
+    if fixed is None:
+        fixed = torch.arange(poses.shape[0], device=poses.device) == 0
+    return replay.replayed(
+        _optimize_flat, poses, *graph, fixed.to(device=poses.device, dtype=torch.bool),
+        num_iterations=int(num_iterations), damping=float(damping), robust_delta=float(robust_delta),
+    )

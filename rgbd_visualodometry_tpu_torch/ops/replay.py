@@ -1,0 +1,120 @@
+"""Replay a function of CUDA tensors from a captured CUDA graph, one per
+shape: the port's counterpart of the JAX package's reuse of one compiled
+executable per shape, for the relaxation's launch-heavy stages.
+
+An eager stage of the relaxation issues thousands of small launches from
+Python (the pose-graph solve's vmapped Jacobians, the Jacobi sweeps of
+every Horn fit) and holds the interpreter lock for each; on the async
+worker thread that starves the frame loop on the main thread.  A replay
+is a few host calls.
+
+:func:`replayed` calls ``fn(*args, **kw)``.  A key is the device, ``fn``,
+the shapes and dtypes of ``args`` and the values of ``kw``.  The first
+call at a key runs ``fn`` eagerly, so a one-off call (an offline relax)
+costs what it did; the second captures a graph and replays it, and every
+later call replays it.  Inside :func:`deferred` (the async relax worker)
+a call at a key without a graph always runs eagerly and leaves the key to
+:func:`capture_deferred`, which the thread that owns the worker calls once
+the worker is done: no capture runs beside the frame loop, where a
+device-wide synchronise on another thread would be refused.  ``fn`` must read its tensors only from ``args``, take no
+decision on their values on the host and return a tensor or a tuple of
+tensors; a replay returns clones of the captured outputs on the caller's
+stream, equal to the eager call to the bit (``chip_smoke.py`` holds it).
+The graphs live as long as the process, as a compile cache does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import torch
+from torch.utils import _pytree as pytree
+
+
+def _warm(stream: torch.cuda.Stream) -> None:
+    """Create this thread's cuBLAS and cuSOLVER handles and their workspace
+    on ``stream`` before a capture there, which may not create them."""
+    with torch.cuda.stream(stream):
+        eye = torch.eye(2, device=stream.device)
+        L, _ = torch.linalg.cholesky_ex(eye @ eye)
+        torch.cholesky_solve(torch.bmm(eye[None], eye[None])[0], L)
+
+
+class _Captured:
+    """``fn`` at one key captured as one CUDA graph: its static inputs and
+    outputs, and the event after the last caller read the outputs."""
+
+    def __init__(self, fn, args, kw):
+        dev = args[0].device
+        cur = torch.cuda.current_stream(dev)
+        self.inputs = [a.clone() for a in args]
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(cur)
+        _warm(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.outputs = fn(*self.inputs, **kw)
+            finally:
+                self.graph.capture_end()
+        cur.wait_stream(stream)
+        self.read = cur.record_event()
+
+    def __call__(self, args):
+        cur = torch.cuda.current_stream(self.inputs[0].device)
+        cur.wait_event(self.read)  # the last caller's replay and reads are done
+        for static, a in zip(self.inputs, args):
+            static.copy_(a)
+        self.graph.replay()
+        out = pytree.tree_map(torch.clone, self.outputs)
+        self.read = cur.record_event()
+        return out
+
+
+_graphs: dict = {}  # key -> _Captured
+_seen: set = set()  # keys run eagerly once outside deferred()
+_deferred: dict = {}  # key -> (fn, [(shape, dtype, device)], kw), run eagerly inside deferred()
+_lock = threading.Lock()  # one capture at a time in a process, one caller at a time per graph
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def deferred():
+    """Calls of :func:`replayed` in this thread, at a key without a graph,
+    run eagerly and leave the capture to :func:`capture_deferred`."""
+    _local.deferred = True
+    try:
+        yield
+    finally:
+        _local.deferred = False
+
+
+def replayed(fn, *args: torch.Tensor, **kw):
+    """``fn(*args, **kw)`` on CUDA tensors: eager at a new key, captured at
+    its second call, replayed from then on (module docstring)."""
+    key = (fn, args[0].device, tuple((a.shape, a.dtype) for a in args), tuple(sorted(kw.items())))
+    with _lock:
+        if key not in _graphs:
+            if getattr(_local, "deferred", False):
+                _deferred.setdefault(key, (fn, [(a.shape, a.dtype, a.device) for a in args], kw))
+            elif key in _seen:
+                _graphs[key] = _Captured(fn, args, kw)
+            else:
+                _seen.add(key)
+        if key in _graphs:
+            return _graphs[key](args)
+    return fn(*args, **kw)
+
+
+def capture_deferred() -> None:
+    """Capture the graphs of the keys that ran eagerly inside
+    :func:`deferred`, on this thread (its inputs are placeholders: a
+    capture reads no values)."""
+    with _lock:
+        pending = list(_deferred.items())
+        _deferred.clear()
+        for key, (fn, specs, kw) in pending:
+            if key not in _graphs:
+                _graphs[key] = _Captured(fn, [torch.zeros(s, dtype=d, device=dev) for s, d, dev in specs], kw)

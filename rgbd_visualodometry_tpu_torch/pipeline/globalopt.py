@@ -9,7 +9,8 @@ live ``VOState`` it joins:
 2. ``ops/loopclosure.build_appearance_graph`` (``appearance=True``) -
    place-recognition edges for revisits that duplicated landmarks;
 3. ``ops/posegraph.optimize_pose_graph`` - robust damped Gauss-Newton on
-   the whole keyframe graph.
+   the whole keyframe graph (on CUDA replayed from a captured graph,
+   ``optimize_pose_graph_graphed``).
 
 After relaxation the map deforms rigidly with its anchors: every mappoint
 moves with the keyframe of its first observation, and the tracking
@@ -194,9 +195,17 @@ def compute_relaxation(
     if int(graph.edge_i.shape[0]) == 0:
         return _noop_relaxation(K, dev)
 
+    solve = posegraph.optimize_pose_graph
+    if dev.type == "cuda":
+        # padded to its bucket as in the JAX package, so that a growing graph
+        # replays one captured solve; on the card the zero-weight edges change
+        # no bit (chip_smoke.py holds it), on the CPU the vectorised loops'
+        # tails would round other rows otherwise, so it is not padded there
+        graph = posegraph.pad_graph(graph, posegraph.edge_bucket(int(graph.edge_i.shape[0])))
+        solve = posegraph.optimize_pose_graph_graphed
     fixed = ~kf_valid
     fixed[order[0]] = True  # earliest keyframe anchors the world (gauge)
-    relaxed_w = posegraph.optimize_pose_graph(
+    relaxed_w = solve(
         poses_w,
         graph,
         num_iterations=num_iterations,

@@ -20,8 +20,12 @@ at run close; after each acting relaxation every materialized pose moves
 with its reference keyframe and the trajectory file is rewritten.  With
 ``relax_async`` (the default) the relaxation is computed from a clone of
 the state on a worker thread, at most one in flight, and applied to the
-live state when it is done; its ops share the device's default stream with
-the frame loop.
+live state when it is done.  On CUDA the worker enqueues on a stream of
+its own, ordered after the clone and before the apply by events, so
+neither thread's blocking host reads wait for the other's kernels, and it
+replays the relaxation's launch-heavy stages from captured CUDA graphs
+(``ops.replay``), so that it holds the interpreter lock for little of the
+frame loop's time.
 
 With ``enable_viewer`` the live viewer (``viz.MapViewer``, the reference's
 render thread ``viewer.cpp:34-54``) is fed from the lagged drain: a
@@ -47,7 +51,7 @@ from rgbd_visualodometry_tpu_torch import mapstate
 from rgbd_visualodometry_tpu_torch.camera import Camera
 from rgbd_visualodometry_tpu_torch.io.trajectory import TrajectoryWriter
 from rgbd_visualodometry_tpu_torch.mapstate import LOST
-from rgbd_visualodometry_tpu_torch.ops import se3
+from rgbd_visualodometry_tpu_torch.ops import replay, se3
 from rgbd_visualodometry_tpu_torch.pipeline import backend, globalopt
 from rgbd_visualodometry_tpu_torch.pipeline import frontend as frontend_mod
 
@@ -108,6 +112,7 @@ class VisualOdometry:
         self._relax_thread: Optional[threading.Thread] = None
         self._relax_result: Optional[globalopt.Relaxation] = None
         self._relax_exc: Optional[BaseException] = None
+        self._relax_done_event: Optional[torch.cuda.Event] = None  # CUDA: the worker's last op
         self._viewer = None
         self._viewer_frame = 0
         if cfg.enable_viewer:
@@ -343,16 +348,42 @@ class VisualOdometry:
         thread; the frame loop keeps tracking.  At most one relaxation is in
         flight ("latest wins", ``backend.h:33-37``): the run loop starts
         one only when none is.  The clone is enqueued on the main thread,
-        before any of the worker's ops."""
+        before any of the worker's ops.
+
+        On CUDA the worker runs on its own stream: it waits for an event
+        recorded after the clone, every snapshot tensor is recorded on its
+        stream (the caching allocator then keeps the memory until the
+        worker's reads are done), and it records ``_relax_done_event`` after
+        its last op for :meth:`_finish_async_relax`.  It replays the
+        relaxation's captured graphs (``ops.replay``) and captures none:
+        a stage it meets at a new shape runs eagerly and is captured by
+        :meth:`_finish_async_relax`, on this thread."""
         snapshot = pytree.tree_map(torch.clone, self.whole_state())
         cfg, relaxes = self.cfg, self._relaxes
+        stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        if stream is not None:
+            cloned = torch.cuda.current_stream(self.device).record_event()
+            for x in pytree.tree_leaves(snapshot):
+                x.record_stream(stream)
+            done = self._relax_done_event = torch.cuda.Event()
+
+        def compute():
+            if relaxes:
+                self._relax_result = globalopt.compute_relaxation(
+                    snapshot, cfg, loop_gap_s=cfg.relax_loop_gap_s, require_loop=True
+                )
 
         def worker():
             try:
-                if relaxes:
-                    self._relax_result = globalopt.compute_relaxation(
-                        snapshot, cfg, loop_gap_s=cfg.relax_loop_gap_s, require_loop=True
-                    )
+                if stream is None:
+                    compute()
+                    return
+                with torch.cuda.stream(stream), replay.deferred():
+                    stream.wait_event(cloned)
+                    try:
+                        compute()
+                    finally:
+                        done.record(stream)
             except BaseException as e:  # re-raised on the main thread by _finish_async_relax
                 self._relax_exc = e
 
@@ -371,6 +402,16 @@ class VisualOdometry:
         self._relax_thread = None
         exc, rlx = self._relax_exc, self._relax_result
         self._relax_exc = self._relax_result = None
+        if self._relax_done_event is not None:
+            # the frame loop's stream takes the worker's results only after
+            # its last op, and keeps their memory until its own uses are done
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self._relax_done_event)
+            self._relax_done_event = None
+            if rlx is not None:
+                for x in (rlx.delta_w, rlx.snap_valid, rlx.snap_ts, rlx.ref_delta_w):
+                    x.record_stream(stream)
+            replay.capture_deferred()  # here, where no other thread launches
 
         def result():
             if exc is not None:

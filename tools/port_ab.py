@@ -2,13 +2,14 @@
 """Two checkouts of the PyTorch/CUDA port against each other on one GPU, in
 turns, in one call.
 
-    python3 tools/port_ab.py --base DIR [--pairs 4] [--out FILE]
+    python3 tools/port_ab.py --base DIR [--pairs 4] [--phase slice|contract] [--out FILE]
 
 ``DIR`` is another checkout of the repository, for example a parent commit
 unpacked with ``git archive`` into a gitignored directory; "head" is the
 checkout that holds this script.  One worker process per turn, in ABBA
-order (base, head, head, base, base, head, ...), ``--pairs`` pairs.  A
-worker imports the port and ``chip_smoke.py`` of its own checkout and runs:
+order (base, head, head, base, base, head, ...), ``--pairs`` pairs.  With
+``--phase slice`` (the default) a worker imports the port and
+``chip_smoke.py`` of its own checkout and runs:
 
 1. that ``chip_smoke.py``'s two 60-frame runs (``slice_phase``): the slice
    without BA, then full VO.  Per run: the median ms/frame over frames
@@ -25,6 +26,11 @@ worker imports the port and ``chip_smoke.py`` of its own checkout and runs:
    shape) and 16384 x 500 (the main path's pool) on seeded inputs, checked
    equal to its plain version, then timed the same way (kernels whose name
    holds ``hamming_matrix``).
+
+With ``--phase contract`` a worker imports the port of its own checkout
+and runs head's ``chip_smoke.stall_contract_run`` on it: the JAX package's
+non-stalling contract of the async relax at 320x240 (a warm-up instance,
+then the timed one), with its numbers per frame and its failures.
 
 Prints one JSON line per worker, then the median of each number per
 checkout, and writes all of it to ``--out`` if given.  Needs a CUDA device.
@@ -51,6 +57,28 @@ def _head_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def contract_worker(tree: str) -> dict:
+    sys.path.insert(0, tree)
+    import torch
+
+    from rgbd_visualodometry_tpu_torch import kernels
+
+    helpers = _head_smoke()
+    kernels.build()
+    r = helpers.stall_contract_run(torch.device("cuda", 0))
+    steady = range(helpers.CONTRACT_SKIP, len(r["frame_s"]))
+    busy = [k for k in steady if r["in_flight"][k]]
+    r["contract"] = dict(
+        median_ms=1e3 * r["median_s"], spikes=len(r["spikes_s"]), ratio=r["ratio"],
+        total_over_limit=r["total_s"] / r["limit_s"], relaxations=r["relaxations"],
+        in_flight_frames=len(busy),
+        in_flight_median_ms=1e3 * statistics.median(r["frame_s"][k] for k in busy) if busy else None,
+        in_flight_read_median_ms=1e3 * statistics.median(r["read_s"][k] for k in busy) if busy else None,
+        passed=not r["failures"],
+    )
+    return dict(r, tree=tree)
 
 
 def worker(tree: str) -> dict:
@@ -130,21 +158,27 @@ def worker(tree: str) -> dict:
     return out
 
 
-# (section, key) of every number summarised per checkout
-METRICS = [(s, k) for s in ("slice", "full_vo") for k in ("ms_frame", "p90_ms", "ba_ms")] + [
-    (s, k) for s in ("k1", "k2", "k3", "k3_main") for k in ("device_ms", "wrapper_ms")
-]
+# (section, key) of every number summarised per checkout, per phase
+METRICS = {
+    "slice": [(s, k) for s in ("slice", "full_vo") for k in ("ms_frame", "p90_ms", "ba_ms")] + [
+        (s, k) for s in ("k1", "k2", "k3", "k3_main") for k in ("device_ms", "wrapper_ms")
+    ],
+    "contract": [("contract", k) for k in ("median_ms", "spikes", "ratio", "total_over_limit", "relaxations",
+                                           "in_flight_frames", "in_flight_median_ms", "in_flight_read_median_ms")],
+}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--base", help="the other checkout's root")
     ap.add_argument("--pairs", type=int, default=4)
+    ap.add_argument("--phase", choices=sorted(METRICS), default="slice")
     ap.add_argument("--out", help="write every worker's numbers here as JSON")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(TAG + json.dumps(worker(os.path.abspath(args.worker))))
+        run = contract_worker if args.phase == "contract" else worker
+        print(TAG + json.dumps(run(os.path.abspath(args.worker))))
         return 0
     if not args.base:
         ap.error("--base is required")
@@ -157,7 +191,7 @@ def main() -> int:
         order += ["base", "head"] if i % 2 == 0 else ["head", "base"]
     runs = []
     for turn, which in enumerate(order):
-        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", trees[which]],
+        p = subprocess.run([sys.executable, os.path.abspath(__file__), "--phase", args.phase, "--worker", trees[which]],
                            capture_output=True, text=True, timeout=900)
         lines = [ln[len(TAG):] for ln in p.stdout.splitlines() if ln.startswith(TAG)]
         if p.returncode or not lines:
@@ -169,7 +203,7 @@ def main() -> int:
     summary = {}
     for which in trees:
         mine = [r for r in runs if r["which"] == which]
-        summary[which] = {f"{s}.{k}": statistics.median(r[s][k] for r in mine) for s, k in METRICS
+        summary[which] = {f"{s}.{k}": statistics.median(r[s][k] for r in mine) for s, k in METRICS[args.phase]
                           if all(r[s][k] is not None for r in mine)}
         print(f"{which} ({trees[which]}), median of {len(mine)} turns: {json.dumps(summary[which])}")
     if args.out:
