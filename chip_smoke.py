@@ -1343,7 +1343,6 @@ def cli_phase(dev) -> dict:
     from rgbd_visualodometry_tpu_torch.io import checkpoint, png, synthetic, tum
     from rgbd_visualodometry_tpu_torch.io.trajectory import read_trajectory
     from rgbd_visualodometry_tpu_torch.pipeline import frontend
-    from rgbd_visualodometry_tpu_torch.utils import StageTimer
     from rgbd_visualodometry_tpu_torch.viz import MapViewer
 
     t_phase = time.perf_counter()
@@ -1378,16 +1377,22 @@ def cli_phase(dev) -> dict:
             raise AssertionError(f"CLI synthetic: ATE {printed} m printed, {relaxed} m relaxed, limit {ATE_LIMIT_M} m")
         if len(ts) != CLI_FRAMES or len(records) != CLI_FRAMES:
             raise AssertionError(f"CLI synthetic: {len(ts)} trajectory lines and {len(records)} stats records")
-        timer = StageTimer()
+        seconds = {"checkpoint load": [], "checkpoint save": []}
         again = os.path.join(tmp, "map_again.npz")
         for _ in range(3):
-            with timer.stage("checkpoint load") as h:
-                h["result"], ccfg, meta = checkpoint.load_state(ckpt, with_meta=True, device=dev)
-            with timer.stage("checkpoint save"):
-                checkpoint.save_state(h["result"], ccfg, again, meta=meta)
+            t0 = time.perf_counter()
+            state, ccfg, meta = checkpoint.load_state(ckpt, with_meta=True, device=dev)
+            torch.cuda.synchronize()
+            seconds["checkpoint load"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            checkpoint.save_state(state, ccfg, again, meta=meta)
+            torch.cuda.synchronize()
+            seconds["checkpoint save"].append(time.perf_counter() - t0)
         differ = _npz_equal(ckpt, again)
         print(f"checkpoint at the default capacities ({os.path.getsize(ckpt) / 2**20:.2f} MiB compressed): "
-              + "; ".join(timer.summary().splitlines()) + f"; leaves that differ after a reload and save: {differ}")
+              + "; ".join(f"{k}: {1e3 * sum(v):.1f} ms total, {1e3 * sum(v) / len(v):.2f} ms/call (n={len(v)})"
+                          for k, v in seconds.items())
+              + f"; leaves that differ after a reload and save: {differ}")
         if differ:
             raise AssertionError(f"checkpoint: a reload saved again differs in {differ}")
 

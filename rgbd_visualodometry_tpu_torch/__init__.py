@@ -15,7 +15,7 @@ the TUM dataset reader (``io/tum.py``) with its PNG codec (``io/png.py``)
 and the prefetching native loader (``native/``, built with g++ and libpng
 where they exist), map checkpoints in the JAX package's format
 (``io/checkpoint.py``), ATE/RPE and the eval command line (``evaltools/``),
-stage timers and profiler traces (``utils/``) and the map viewer
+the program's trace spans and profiler traces (``utils/``) and the map viewer
 (``viz/``).
 
 The package imports torch and numpy, never jax, PyYAML or OpenCV, and no

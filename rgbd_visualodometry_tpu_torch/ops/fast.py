@@ -23,6 +23,7 @@ import torch
 from rgbd_visualodometry_tpu_torch import kernels
 from rgbd_visualodometry_tpu_torch.ops import image as im
 from rgbd_visualodometry_tpu_torch.ops import packing
+from rgbd_visualodometry_tpu_torch.utils.profiling import spanned
 
 # Bresenham circle of radius 3 in circular order, (dy, dx)
 _CIRCLE = (
@@ -108,6 +109,7 @@ def _fast_nms_streams_vmap(info, in_dims, levels):
     return out.reshape(info.batch_size, -1, out.shape[-1]), 0
 
 
+@spanned("vo.fast_nms")
 def fast_nms_pyramid(levels) -> list[torch.Tensor]:
     """NMS'd FAST-9 score maps of a list of float32 ``[H, W]`` images on one
     device (:func:`fast_nms_streams` with one stream): on CUDA one launch of

@@ -21,6 +21,7 @@ import torch
 from rgbd_visualodometry_tpu_torch import camera as cam_mod
 from rgbd_visualodometry_tpu_torch.ops import se3
 from rgbd_visualodometry_tpu_torch.ops.smalleig import cholesky_solve
+from rgbd_visualodometry_tpu_torch.utils.profiling import spanned
 
 
 def reprojection_residuals(pose, pts_w, uv, camera):
@@ -98,6 +99,7 @@ class PoseRefineResult(NamedTuple):
     num_final_inliers: torch.Tensor  # scalar int64
 
 
+@spanned("vo.pose.lm")
 def refine_pose(pose0, pts_w, uv, inlier_mask, camera, iterations: int = 10,
                 huber_delta: float = 7.815**0.5, chi2_outlier: float = 1.0) -> PoseRefineResult:
     """The reference's two-round schedule (``src/frontend.cpp:256-329``)."""

@@ -28,6 +28,7 @@ import torch
 from rgbd_visualodometry_tpu_torch import kernels
 from rgbd_visualodometry_tpu_torch.ops.orb import unpack_bits
 from rgbd_visualodometry_tpu_torch.ops import collectives
+from rgbd_visualodometry_tpu_torch.utils.profiling import spanned
 
 BIG = 1 << 20
 
@@ -119,6 +120,7 @@ def _hamming_nn_streams_vmap(info, in_dims, cand_desc, kp_desc, kp_mask):
     return (idx.reshape(B, -1, idx.shape[-1]), dist.reshape(B, -1, dist.shape[-1])), (0, 0)
 
 
+@spanned("vo.match")
 def nearest_keypoints_packed(cand_desc: torch.Tensor, kp_desc: torch.Tensor, kp_mask: torch.Tensor) -> NearestKeypoints:
     """Nearest valid keypoint for every row of the packed pool.
 

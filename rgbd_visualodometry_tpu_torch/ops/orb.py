@@ -21,6 +21,7 @@ import torch
 
 from rgbd_visualodometry_tpu_torch.ops import fast
 from rgbd_visualodometry_tpu_torch.ops import image as im
+from rgbd_visualodometry_tpu_torch.utils.profiling import spanned
 
 PATCH = 33
 PATCH_R = PATCH // 2
@@ -138,6 +139,7 @@ def _brief(blurred_padded: torch.Tensor, xy: torch.Tensor, qbin: torch.Tensor, a
     return vals[..., 0] < vals[..., 1]
 
 
+@spanned("vo.orb")
 def extract(
     gray: torch.Tensor,
     nfeatures: int = 500,

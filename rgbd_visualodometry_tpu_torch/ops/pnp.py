@@ -20,6 +20,7 @@ from rgbd_visualodometry_tpu_torch import random as vo_random
 from rgbd_visualodometry_tpu_torch.ops import se3
 from rgbd_visualodometry_tpu_torch.ops.packing import top_k
 from rgbd_visualodometry_tpu_torch.ops.smalleig import cholesky_solve, kabsch_quat
+from rgbd_visualodometry_tpu_torch.utils.profiling import spanned
 
 
 class RansacResult(NamedTuple):
@@ -51,6 +52,7 @@ def _gn_three_point(pose0, p3, uv3, camera, iterations: int = 6, damping: float 
     return pose
 
 
+@spanned("vo.pose.ransac")
 def ransac_pnp(key, p_world, uv, p_cam_depth, depth_ok, match_valid, seed_pose, camera,
                n_hypotheses: int = 128, threshold: float = 4.0,
                depth_free_fraction: float = 0.25) -> RansacResult:

@@ -18,7 +18,8 @@ As in the JAX package the step is two calls, ``track_compute`` and then
 result every leaf takes only for the streams that asked for it (``pred``).
 The host reads each step's ``[S, 32]`` record once, three steps late, and
 dispatches BA when a stream inserted a keyframe, at most once every
-``ba_min_frame_gap`` steps for the whole batch.
+``ba_min_frame_gap`` steps for the whole batch; ``counters()`` reports how
+many streams each dispatch solved and kept, and the LM steps taken.
 
 With ``group``, rank ``r`` of ``W`` owns streams ``[r S / W, (r + 1) S / W)``
 (``mesh.py:90-104``): it holds only their states and runs the same batched
@@ -57,6 +58,7 @@ from rgbd_visualodometry_tpu_torch.pipeline import backend
 from rgbd_visualodometry_tpu_torch.pipeline import frontend as frontend_mod
 from rgbd_visualodometry_tpu_torch.pipeline import globalopt
 from rgbd_visualodometry_tpu_torch.pipeline.system import VisualOdometry, open_device
+from rgbd_visualodometry_tpu_torch.utils.profiling import spanned
 
 BA_LAG = 3  # steps between a record and the host's read of it (mesh.py:116)
 
@@ -109,12 +111,14 @@ class MultiStreamVO:
         self._compute = torch.func.vmap(functools.partial(frontend_mod.track_compute, cfg, self.camera))
         self._update = torch.func.vmap(functools.partial(_apply_updates_packed, cfg, self.camera))
         self.enable_backend = bool(cfg.enable_local_optimization)
-        self._ba = torch.func.vmap(functools.partial(_masked_ba, cfg, self.camera))
+        self._solve = torch.func.vmap(functools.partial(_masked_ba, cfg, self.camera))
         # per-stream absolute-time origin: the device sees float32 offsets
         self.time_base: Optional[np.ndarray] = None
         self._ba_pending: collections.deque = collections.deque()
         self._frames_since_ba = 1 << 30
         self.ba_dispatches = 0  # batched BA solves run
+        self.ba_streams_kept = 0  # streams whose result the state kept (this rank's)
+        self._ba_lm_steps = torch.zeros(len(self.streams), dtype=torch.int64, device=self.device)
 
     def put_batch(self, rgb: np.ndarray, depth: np.ndarray, timestamps) -> frontend_mod.FrameInput:
         """Stage one ``[S, ...]`` frame batch on the device (this rank's
@@ -128,6 +132,7 @@ class MultiStreamVO:
         own = slice(self.streams.start, self.streams.stop)
         return frontend_mod.frame_input(rgb[own], depth[own], (ts - self.time_base)[own], self.device)
 
+    @spanned("vo.step")
     def step(self, rgb, depth=None, timestamps=None) -> frontend_mod.StepOutput:
         """One tracking step for all streams: numpy ``rgb [S, H, W, 3]``,
         ``depth [S, H, W]``, ``timestamps [S]``, or a staged
@@ -163,6 +168,24 @@ class MultiStreamVO:
                 self.states = self._ba(self.states, kf, torch.from_numpy(needs[own]).to(self.device))
                 self._frames_since_ba = 0
                 self.ba_dispatches += 1
+                self.ba_streams_kept += int(needs[own].sum())
+
+    def _ba(self, states, kf, pred):
+        """The masked BA of every stream (``kf [S]``, ``pred [S]``): returns
+        the states, and adds the kept streams' LM steps to the counter."""
+        states, lm_steps = self._solve(states, kf, pred)
+        self._ba_lm_steps += lm_steps
+        return states
+
+    def counters(self) -> dict:
+        """Local BA's work since construction, as host ints, over this
+        rank's streams: dispatches, streams solved (every stream, every
+        dispatch) and kept (those whose record asked for BA), the LM
+        iterations run for the kept streams and those whose step was taken.
+        Reads the device once; the step path never calls it."""
+        n, kept = self.ba_dispatches, self.ba_streams_kept
+        return dict(ba_dispatches=n, ba_streams_solved=n * len(self.streams), ba_streams_kept=kept,
+                    ba_lm_iterations=2 * self.cfg.ba_iterations * kept, ba_lm_steps=int(self._ba_lm_steps.sum()))
 
     def finish(self) -> None:
         """Run the BA dispatches still due (call once after the last step)."""
@@ -188,9 +211,10 @@ def _apply_updates_packed(cfg, camera, state, inter):
 
 def _masked_ba(cfg, camera, state, kf, pred):
     """``ba_step`` on one stream whose result every leaf takes only where
-    ``pred`` (mesh.py:125-129)."""
-    new_state, _ = backend.ba_step(cfg, camera, state, kf)
-    return pytree.tree_map(lambda a, b: torch.where(pred, a, b), new_state, state)
+    ``pred`` (mesh.py:125-129); returns ``(state, LM steps taken)``, the
+    steps 0 where not ``pred``."""
+    new_state, out = backend.ba_step(cfg, camera, state, kf)
+    return pytree.tree_map(lambda a, b: torch.where(pred, a, b), new_state, state), torch.where(pred, out.lm_steps, 0)
 
 
 class _HostRecord:
@@ -207,6 +231,7 @@ class _HostRecord:
         else:
             self._host, self._done = packed, None
 
+    @spanned("vo.readback")
     def numpy(self) -> np.ndarray:
         if self._done is not None:
             self._done.synchronize()

@@ -51,6 +51,7 @@ from rgbd_visualodometry_tpu_torch.ops import lm as lm_ops
 from rgbd_visualodometry_tpu_torch.ops import packing, se3
 from rgbd_visualodometry_tpu_torch.ops.smalleig import inv3x3
 from rgbd_visualodometry_tpu_torch.ops import collectives
+from rgbd_visualodometry_tpu_torch.utils.profiling import span, spanned
 
 _INT32_MAX = 2**31 - 1
 
@@ -144,9 +145,11 @@ def _pose_sum(values, o_wpos, P):
     return out.index_add(0, o_wpos.reshape(-1), flat)[:P]
 
 
+@spanned("vo.ba.lm")
 def _lm_phase(cfg, camera, prob: BAProblem, poses0, pts0, obs_mask, iterations: int, huber_delta):
     """One LM round (``optimizer.optimize(10)``) with adaptive damping;
-    returns ``(poses, points)``."""
+    returns ``(poses, points, steps)``, ``steps`` the iterations whose step
+    was taken (an int32 count on the device)."""
     P = poses0.shape[0]
     MB, M = obs_mask.shape
     dev = poses0.device
@@ -189,6 +192,7 @@ def _lm_phase(cfg, camera, prob: BAProblem, poses0, pts0, obs_mask, iterations: 
     lam = torch.tensor(1e-3, dtype=f32, device=dev)
     cost = total_cost(poses0, pts0)
     done = torch.zeros((), dtype=torch.bool, device=dev)
+    steps = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(iterations):
         e, p_c, e_pose = _residuals(prob, poses, pts, camera)
         Jp = lm_ops.pose_jacobian(p_c, camera)  # [MB, M, 2, 6]
@@ -257,6 +261,7 @@ def _lm_phase(cfg, camera, prob: BAProblem, poses0, pts0, obs_mask, iterations: 
         accept = (new_cost < cost) & (info == 0)
         converged = accept & (cost - new_cost <= rtol * (cost + 1e-20))
         take = accept & ~done
+        steps = steps + take
         poses = torch.where(take, cand_poses, poses)
         pts = torch.where(take, cand_pts, pts)
         cost = torch.where(take, new_cost, cost)
@@ -264,31 +269,35 @@ def _lm_phase(cfg, camera, prob: BAProblem, poses0, pts0, obs_mask, iterations: 
         done_next = done | converged | (lam > 1e8)
         lam = torch.where(done, lam, lam_next)
         done = done_next
-    return poses, pts
+    return poses, pts, steps
 
 
 class BAOutput(NamedTuple):
     num_pruned: torch.Tensor  # outlier observations removed (both rounds)
     num_points: torch.Tensor
     num_poses: torch.Tensor
+    lm_steps: torch.Tensor  # int32: LM iterations of both rounds whose step was taken (this rank's)
 
 
+@spanned("vo.ba")
 def ba_step(cfg, camera, state: VOState, kf, shard=None):
     """Two-round local BA on keyframe ``kf`` (an int or a 0-d integer
     tensor); returns ``(state, BAOutput)``.  A masked no-op when the window
     or the point set is empty."""
     K = state.kf_pose.shape[0]
     C = state.obs_kf.shape[0]
-    prob = build_problem(cfg, state, kf, shard)
-    poses0 = state.kf_pose[prob.widx]
-    (pts0,) = collectives.pool_rows(shard, prob.pidx, state.mp_pos)
+    with span("vo.ba.build"):
+        prob = build_problem(cfg, state, kf, shard)
+        poses0 = state.kf_pose[prob.widx]
+        (pts0,) = collectives.pool_rows(shard, prob.pidx, state.mp_pos)
 
     # round 1: robust kernel on all edges (backend.cpp:122-141)
-    poses1, pts1 = _lm_phase(cfg, camera, prob, poses0, pts0, prob.o_valid, cfg.ba_iterations, cfg.huber_delta)
+    poses1, pts1, steps1 = _lm_phase(cfg, camera, prob, poses0, pts0, prob.o_valid, cfg.ba_iterations,
+                                     cfg.huber_delta)
     prune1 = prob.o_valid & (_chi2(prob, poses1, pts1, camera) > cfg.chi2_th)
     # round 2: no robust kernel, pruned edges out (backend.cpp:143-159)
     mask2 = prob.o_valid & ~prune1
-    poses2, pts2 = _lm_phase(cfg, camera, prob, poses1, pts1, mask2, cfg.ba_iterations, None)
+    poses2, pts2, steps2 = _lm_phase(cfg, camera, prob, poses1, pts1, mask2, cfg.ba_iterations, None)
     prune2 = mask2 & (_chi2(prob, poses2, pts2, camera) > cfg.chi2_th)
     pruned = prune1 | prune2
     poses2, pts2, pruned = collectives.broadcast_tensors(shard, poses2, pts2, pruned)
@@ -306,5 +315,6 @@ def ba_step(cfg, camera, state: VOState, kf, shard=None):
     state = state.replace(kf_pose=kf_pose[:K], mp_pos=mp_pos[:C], mp_optimized=mp_opt[:C])
     # pruned observations leave the map (backend.cpp:148-153, 164-168)
     state = mapstate.remove_observations_rows(state, pidx, pown, pruned)
-    out = BAOutput(num_pruned=torch.sum(pruned), num_points=torch.sum(prob.pval), num_poses=torch.sum(prob.wval))
+    out = BAOutput(num_pruned=torch.sum(pruned), num_points=torch.sum(prob.pval), num_poses=torch.sum(prob.wval),
+                   lm_steps=steps1 + steps2)
     return state, out

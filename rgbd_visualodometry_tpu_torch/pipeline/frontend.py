@@ -32,6 +32,7 @@ from rgbd_visualodometry_tpu_torch.ops import depth as depth_mod
 from rgbd_visualodometry_tpu_torch.ops import image as im
 from rgbd_visualodometry_tpu_torch.ops import lm, matching, orb, packing, pnp, se3, triangulate
 from rgbd_visualodometry_tpu_torch.ops import collectives
+from rgbd_visualodometry_tpu_torch.utils.profiling import spanned
 
 
 class FrameInput(NamedTuple):
@@ -135,6 +136,7 @@ class TrackInter(NamedTuple):
 _REPLICATED = tuple(f for f in TrackInter._fields if f != "tmap")
 
 
+@spanned("vo.pose_round")
 def _match_and_estimate(cfg, camera, state: VOState, nn, feats, kp_cam, dep, tmap, pose, key, is_lost, coarse=False,
                         shard=None):
     """One round: candidates -> gate -> best-P compaction -> RANSAC -> LM."""
@@ -236,6 +238,7 @@ def track_compute(cfg, camera, state: VOState, frame: FrameInput, shard=None) ->
     return it._replace(**dict(zip(_REPLICATED, agreed)))
 
 
+@spanned("vo.map_update")
 def apply_updates(cfg, camera, state: VOState, it: TrackInter, shard=None):
     """State-update half: keyframe insert, observations, new mappoints,
     triangulation, bookkeeping.  Returns ``(state, StepOutput)``."""

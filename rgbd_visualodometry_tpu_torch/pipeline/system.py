@@ -11,7 +11,12 @@ Local bundle adjustment (``enable_local_optimization``) runs as in the
 reference: when a keyframe's lagged record asks for it, ``backend.ba_step``
 optimizes the newest state, after the steps still in flight ("latest
 keyframe wins", ``backend.h:33-37``), at most once every
-``ba_min_frame_gap`` frames.
+``ba_min_frame_gap`` frames.  ``counters()`` reports the BA work done.
+
+A frame's work is traced from inside: while a torch profiler records,
+``process_async`` is the span ``vo.step``, the record's read ``vo.readback``
+and BA ``vo.ba``, with the spans of the layers below inside them
+(``utils.profiling.span``).
 
 Loop closure (``pipeline/globalopt.py``): ``global_relax`` relaxes the
 whole keyframe graph and deforms the map with it.  With
@@ -54,6 +59,7 @@ from rgbd_visualodometry_tpu_torch.mapstate import LOST
 from rgbd_visualodometry_tpu_torch.ops import replay, se3
 from rgbd_visualodometry_tpu_torch.pipeline import backend, globalopt
 from rgbd_visualodometry_tpu_torch.pipeline import frontend as frontend_mod
+from rgbd_visualodometry_tpu_torch.utils.profiling import span, spanned
 
 _STATS = (
     "num_candidates", "num_matches", "num_inliers", "num_final_inliers",
@@ -107,6 +113,7 @@ class VisualOdometry:
         self._pending: collections.deque = collections.deque()
         self._frames_since_ba = 1 << 30
         self.ba_dispatches = 0  # local BA solves run
+        self._ba_lm_steps = torch.zeros((), dtype=torch.int64, device=self.device)  # their LM steps taken
         self.num_auto_relaxes = 0  # online loop closures (relax_every_kf)
         # async loop-closure worker (cfg.relax_async): at most one in flight
         self._relax_thread: Optional[threading.Thread] = None
@@ -127,6 +134,7 @@ class VisualOdometry:
             self.time_base = float(timestamp)
         return frontend_mod.frame_input(rgb, depth, float(timestamp) - self.time_base, self.device)
 
+    @spanned("vo.step")
     def process_async(self, rgb, depth=None, timestamp=None, rgb_ref=None):
         """Enqueue one frame: numpy ``(rgb, depth, timestamp)`` or a staged
         :class:`FrameInput` with its host ``timestamp``.  With the viewer on,
@@ -146,13 +154,15 @@ class VisualOdometry:
         self._pending.append((float(timestamp), out, time.perf_counter() - t0, rgb_ref))
 
     def _materialize(self, ts: float, out, dispatch_s: float, rgb_ref=None) -> FrameResult:
-        o = out.packed.cpu().numpy()  # one host copy of the record
+        with span("vo.readback"):
+            o = out.packed.cpu().numpy()  # one host copy of the record
         f = frontend_mod.StepOutput._FIELDS
         self._frames_since_ba += 1
         if self.enable_backend and o[f["needs_ba"]] > 0.5 and self._frames_since_ba > self.cfg.ba_min_frame_gap:
-            self.state, _ = backend.ba_step(self.cfg, self.camera, self.state, int(o[f["kf_slot"]]), self.shard)
+            self.state, ba = backend.ba_step(self.cfg, self.camera, self.state, int(o[f["kf_slot"]]), self.shard)
             self._frames_since_ba = 0
             self.ba_dispatches += 1
+            self._ba_lm_steps += ba.lm_steps
         res = FrameResult(
             timestamp=ts,
             tracked=bool(o[f["tracked"]] > 0.5),
@@ -186,6 +196,15 @@ class VisualOdometry:
     def process(self, rgb: np.ndarray, depth: np.ndarray, timestamp: float) -> FrameResult:
         self.process_async(rgb, depth, timestamp)
         return self.drain(0)
+
+    def counters(self) -> dict:
+        """Local BA's work since construction, as host ints: dispatches,
+        streams solved and kept (one each a dispatch here), the LM
+        iterations run for the kept streams and those whose step was taken.
+        Reads the device once; the step path never calls it."""
+        n = self.ba_dispatches
+        return dict(ba_dispatches=n, ba_streams_solved=n, ba_streams_kept=n,
+                    ba_lm_iterations=2 * self.cfg.ba_iterations * n, ba_lm_steps=int(self._ba_lm_steps))
 
     @property
     def lost(self) -> bool:

@@ -1,76 +1,65 @@
-"""Per-stage wall timing and torch.profiler traces.
+"""The program's own trace spans, and torch.profiler traces.
 
 Counterpart of ``rgbd_visualodometry_tpu/utils/profiling.py``.  Replaces the
 reference's ``boost::timer::cpu_timer`` per-frame print
 (``app/run_vo.cpp:104-109``) with:
 
-- :class:`StageTimer` - named wall-clock sections that wait for the CUDA
-  device (``torch.cuda.synchronize``, where the JAX package calls
-  ``jax.block_until_ready``) when the stage's result holds a CUDA tensor,
-  so the numbers mean device time and not launch latency; on the CPU a
-  stage only reads the clock;
+- :func:`span` and :func:`spanned` - the named ranges ``vo.*`` that the
+  program opens where each layer's work runs (``vo.step``, ``vo.orb``,
+  ``vo.pose_round``, ``vo.ba``, ...).  While a torch profiler records on
+  this thread (``torch.profiler.profile``, ``emit_nvtx``), a span is a
+  range in its trace, on the same clock as the device's operations; at
+  any other time it costs one check.  A span never synchronises;
 - :func:`torch_trace` - a context manager around ``torch.profiler``
-  writing a Chrome/perfetto trace (``trace.json``) for op-level analysis.
+  writing a Chrome/Perfetto trace (``trace.json``) that holds those spans,
+  the host ops and, with CUDA, the device's kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
-import time
-from collections import defaultdict
 
 import torch
-from torch.utils import _pytree as pytree
+from torch._C._profiler import _RecordFunctionFast
+
+_OFF = contextlib.nullcontext()
 
 
-def _sync(target) -> None:
-    devices = {x.device for x in pytree.tree_leaves(target) if isinstance(x, torch.Tensor) and x.is_cuda}
-    for dev in devices:
-        torch.cuda.synchronize(dev)
+def span(name: str):
+    """A context manager: while a torch profiler records, a range named
+    ``name`` in its trace; else one shared null context.
+
+    The range is a function-scope record (a ``cpu_op`` in the trace, as an
+    aten op is), not a ``record_function`` user annotation: the profiler
+    mirrors the innermost user annotation around each kernel onto the
+    device's timeline, so a user annotation here would re-label the device
+    timeline of any tool that annotates its own calls into the program."""
+    if torch.autograd._profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _OFF
 
 
-class StageTimer:
-    """Accumulate wall time per named stage.
+def spanned(name: str):
+    """Decorator: the function's whole call is the span ``name``."""
 
-    Usage::
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
 
-        t = StageTimer()
-        with t.stage("track") as h:
-            h["result"] = step(...)  # waited for on exit
-        print(t.summary())
-    """
+        return inner
 
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-
-    @contextlib.contextmanager
-    def stage(self, name: str, block_on=None):
-        t0 = time.perf_counter()
-        holder = {}
-        try:
-            yield holder
-        finally:
-            target = holder.get("result", block_on)
-            if target is not None:
-                _sync(target)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> str:
-        lines = []
-        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(f"{name}: {total * 1e3:.1f} ms total, {total / n * 1e3:.2f} ms/call (n={n})")
-        return "\n".join(lines)
+    return wrap
 
 
 @contextlib.contextmanager
 def torch_trace(out_dir: str):
-    """Profile the block with ``torch.profiler`` (host ops, and device
-    kernels when CUDA is available) and write ``out_dir/trace.json`` on
-    exit; yields that path."""
+    """Profile the block with ``torch.profiler`` (host ops and the
+    program's spans, and device kernels when CUDA is available) and write
+    ``out_dir/trace.json`` on exit; yields that path."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)

@@ -300,26 +300,28 @@ def test_cli_runs_on_the_card_unless_cpu(tmp_path):
 
 
 def test_profiling_stage_timer_and_trace(tmp_path):
-    """``utils.profiling``: stages accumulate (a CPU result is not waited
-    for), the summary lists them slowest first, and ``torch_trace`` writes
-    a Chrome trace of the ops it saw."""
+    """``utils.profiling``: ``span`` and ``spanned`` are ranges only while a
+    profiler records, and ``torch_trace`` writes a Chrome trace holding the
+    ops it saw and the spans around them, nested."""
     import torch
 
-    from rgbd_visualodometry_tpu_torch.utils import StageTimer, torch_trace
+    from rgbd_visualodometry_tpu_torch.utils import span, spanned, torch_trace
 
-    t = StageTimer()
-    for _ in range(3):
-        with t.stage("matmul") as h:
-            h["result"] = torch.ones(64, 64) @ torch.ones(64, 64)
-    with t.stage("nothing", block_on={"a": [torch.zeros(2)]}):
-        pass
-    assert dict(t.counts) == {"matmul": 3, "nothing": 1} and t.totals["matmul"] > 0
-    lines = t.summary().splitlines()
-    assert len(lines) == 2 and lines[0].startswith("matmul: ") and "(n=3)" in lines[0]
+    @spanned("vo.outer")
+    def outer():
+        with span("vo.inner"):
+            return torch.ones(8, 8).mm(torch.ones(8, 8))
+
+    assert span("vo.a") is span("vo.b")  # off: one shared null context
+    assert float(outer().sum()) == 512.0 and outer.__name__ == "outer"
     with torch_trace(str(tmp_path / "trace")) as path:
-        torch.ones(8, 8).mm(torch.ones(8, 8))
+        outer()
     events = json.load(open(path, encoding="utf-8"))["traceEvents"]
-    assert path == str(tmp_path / "trace" / "trace.json") and any("mm" in e.get("name", "") for e in events)
+    assert path == str(tmp_path / "trace" / "trace.json")
+    got = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events if e.get("name") in ("vo.outer", "vo.inner", "aten::mm")}
+    assert set(got) == {"vo.outer", "vo.inner", "aten::mm"}
+    assert got["vo.outer"][0] <= got["vo.inner"][0] <= got["aten::mm"][0]
+    assert got["aten::mm"][1] <= got["vo.inner"][1] <= got["vo.outer"][1]
 
 
 def test_chip_smoke_drives_the_cli_on_the_default_config():

@@ -183,15 +183,14 @@ def test_port_runs_without_jax():
         "torch.distributed.destroy_process_group()\n"
         "from rgbd_visualodometry_tpu_torch import cli, evaltools, native, viz\n"
         "from rgbd_visualodometry_tpu_torch.io import checkpoint, png, trajectory, tum\n"
-        "from rgbd_visualodometry_tpu_torch.utils import StageTimer\n"
+        "from rgbd_visualodometry_tpu_torch.utils import span\n"
         "d = tempfile.mkdtemp()\n"
         "open(d + '/cfg.yaml', 'w').write('%YAML:1.0\\nimage_width: 160\\nimage_height: 120\\ncamera.fx: 129.3\\n'\n"
         "    'camera.fy: 129.1\\ncamera.cx: 79.6\\ncamera.cy: 63.8\\nnumber_of_features: 150\\nlevel_pyramid: 3\\n'\n"
         "    'max_keyframes: 8\\nmax_mappoints: 1024\\nba_max_points: 256 # comment\\n')\n"
-        "timer = StageTimer()\n"
-        "with timer.stage('cli'):\n"
+        "with span('cli'):\n"
         "    rc = cli.main([d + '/cfg.yaml', '--synthetic', '4', '--cpu', '--quiet', '--save-map', d + '/m.npz', '--output', d + '/t.txt'])\n"
-        "assert rc == 0 and timer.counts['cli'] == 1\n"
+        "assert rc == 0\n"
         "state, c, meta = checkpoint.load_state(d + '/m.npz', with_meta=True, device='cpu')\n"
         "assert c.max_mappoints == 1024 and int(state.num_kf) >= 1 and 'time_base' in meta\n"
         "ts, poses = trajectory.read_trajectory(d + '/t.txt')\n"
