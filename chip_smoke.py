@@ -115,7 +115,7 @@
    every 15 steps): 72 streams, each its own 640x480 sequence (seed ``s``,
    rendered by ``bench.render_streams`` in a process pool), 12 warm-up and
    12 timed batch steps, the batches staged on the card first.  Every stream must track every frame
-   with ATE < 3 cm, a masked BA must have run, and K1 and K2 must have
+   with ATE < 3 cm, a BA dispatch must have run, and K1 and K2 must have
    launched exactly once per batch step.  Then K1 (72 streams x 8 levels)
    and K2 (72 x 16384 x 500, one stream all masked) are compared with their
    plain versions per stream, and timed after the other kernels, with
@@ -1632,7 +1632,7 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
     ``MS_STREAMS`` streams of 640x480 full VO (:func:`multistream_config`),
     each its own sequence, ``MS_WARMUP`` steps then ``MS_MEASURED`` timed
     ones, every batch staged on the card first.  Checks that every stream
-    tracks every frame with ATE < 3 cm, that a masked BA dispatch ran and
+    tracks every frame with ATE < 3 cm, that a BA dispatch ran and
     that K1 and K2 launched once per batch step.  Returns a function that
     times K1 and K2 at the batched shapes (after the other timings) and
     returns their entries for the JSON line, one that runs
@@ -1663,12 +1663,12 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
     vo = MultiStreamVO(cfg, S, device=dev)
     batches = [vo.put_batch(seq["rgb"][i], seq["depth"][i], seq["timestamp"][i]) for i in range(n + 2 * profile_steps)]
     ba_s = []
-    masked_ba = vo._ba
+    fleet_ba = vo._ba
 
     def timed_ba(*a):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = masked_ba(*a)
+        out = fleet_ba(*a)
         torch.cuda.synchronize()
         ba_s.append(time.perf_counter() - t)
         return out
@@ -1696,7 +1696,7 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
           f"{S * len(measured) / sum(measured):.2f} stream-frames/s over steps {MS_WARMUP}-{n - 1}, "
           f"{1e3 * statistics.median(measured):.2f} ms/step median (p90 "
           f"{1e3 * sorted(measured)[int(0.9 * len(measured))]:.2f}), first step {1e3 * step_s[0]:.2f} ms")
-    print(f"multistream: {vo.ba_dispatches} masked BA dispatches ({int(rec[..., f['needs_ba']].sum())} "
+    print(f"multistream: {vo.ba_dispatches} BA dispatches ({int(rec[..., f['needs_ba']].sum())} "
           f"stream-records asked for BA), BA {1e3 * statistics.median(ba_s):.2f} ms/dispatch median "
           f"(all: {', '.join(f'{1e3 * x:.2f}' for x in ba_s)})" if ba_s else "multistream: no BA dispatch")
     print(f"launches on the multistream path: {counts} over {n} batch steps")

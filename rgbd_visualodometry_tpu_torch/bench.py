@@ -281,7 +281,7 @@ def bench_multistream(cfg, n_streams: int, full_vo: bool = False, repeats: int =
                       device="cuda", window_log: str = WINDOW_LOG) -> dict:
     """``n_streams`` independent streams in one ``MultiStreamVO`` (each
     its own sequence, seed ``s``), on :func:`multistream_cfg`; with
-    ``full_vo`` the masked batched local BA.  Every batch is staged on the
+    ``full_vo`` the batched local BA of the streams that asked for it.  Every batch is staged on the
     card first; ``repeats`` passes over them, each on a fresh VO."""
     device = open_device(device)
     mcfg = multistream_cfg(cfg, full_vo=full_vo)

@@ -14,12 +14,17 @@ their custom ops' vmap rules (``kernels.fold_streams``).  A loop over the
 streams would issue each of the ~31k launches of a frame S times.
 
 As in the JAX package the step is two calls, ``track_compute`` and then
-``apply_updates``, and the optional local BA is one vmapped ``ba_step`` whose
-result every leaf takes only for the streams that asked for it (``pred``).
-The host reads each step's ``[S, 32]`` record once, three steps late, and
-dispatches BA when a stream inserted a keyframe, at most once every
-``ba_min_frame_gap`` steps for the whole batch; ``counters()`` reports how
-many streams each dispatch solved and kept, and the LM steps taken.
+``apply_updates``.  The optional local BA differs: the JAX package solves
+every stream and keeps the result only where a stream asked for it
+(``pred``); here a dispatch gathers the streams that asked, runs one
+vmapped ``ba_step`` over just those (a lone one beside a copy of itself:
+a batch of one rounds otherwise), and writes their results back, so no
+solve is thrown away.  The host reads each step's ``[S, 32]`` record once,
+three steps late, and dispatches BA when a stream inserted a keyframe, at
+most once every ``ba_min_frame_gap`` steps for the whole batch; the rows to
+gather come from that host copy, so a dispatch reads nothing back from the
+device.  ``counters()`` reports how many streams the dispatches solved and
+kept, and the LM steps taken.
 
 With ``group``, rank ``r`` of ``W`` owns streams ``[r S / W, (r + 1) S / W)``
 (``mesh.py:90-104``): it holds only their states and runs the same batched
@@ -111,12 +116,14 @@ class MultiStreamVO:
         self._compute = torch.func.vmap(functools.partial(frontend_mod.track_compute, cfg, self.camera))
         self._update = torch.func.vmap(functools.partial(_apply_updates_packed, cfg, self.camera))
         self.enable_backend = bool(cfg.enable_local_optimization)
-        self._solve = torch.func.vmap(functools.partial(_masked_ba, cfg, self.camera))
+        self._solve = torch.func.vmap(functools.partial(_ba_one, cfg, self.camera))
+        self._kept_rows: Optional[torch.Tensor] = None  # the next ``_ba`` call's rows, from the host's record
         # per-stream absolute-time origin: the device sees float32 offsets
         self.time_base: Optional[np.ndarray] = None
         self._ba_pending: collections.deque = collections.deque()
         self._frames_since_ba = 1 << 30
         self.ba_dispatches = 0  # batched BA solves run
+        self.ba_streams_solved = 0  # streams gathered into a solve (this rank's)
         self.ba_streams_kept = 0  # streams whose result the state kept (this rank's)
         self._ba_lm_steps = torch.zeros(len(self.streams), dtype=torch.int64, device=self.device)
 
@@ -152,11 +159,11 @@ class MultiStreamVO:
 
     def _drain_ba(self, keep_lag: int) -> None:
         """Read the lagged records (one host copy of ``[S, 32]`` each, no
-        other leaf) and dispatch the masked BA when a stream inserted a
-        keyframe and the last dispatch is more than ``ba_min_frame_gap``
-        steps back (the reference backend's coalescing, backend.cpp:8-17).
-        Every rank reads the whole record, so all decide alike; each solves
-        its own streams."""
+        other leaf) and dispatch BA when a stream inserted a keyframe and the
+        last dispatch is more than ``ba_min_frame_gap`` steps back (the
+        reference backend's coalescing, backend.cpp:8-17).  Every rank reads
+        the whole record, so all decide alike; each solves those of its own
+        streams that asked, possibly none."""
         f = frontend_mod.StepOutput._FIELDS
         own = slice(self.streams.start, self.streams.stop)
         while len(self._ba_pending) > keep_lag:
@@ -164,27 +171,46 @@ class MultiStreamVO:
             needs = o[:, f["needs_ba"]] > 0.5
             self._frames_since_ba += 1
             if needs.any() and self._frames_since_ba > self.cfg.ba_min_frame_gap:
-                kf = torch.from_numpy(o[own, f["kf_slot"]].astype(np.int64)).to(self.device)
-                self.states = self._ba(self.states, kf, torch.from_numpy(needs[own]).to(self.device))
+                mine = needs[own]
+                kf, pred, self._kept_rows = _to_device(self.device, o[own, f["kf_slot"]], mine, np.flatnonzero(mine))
+                self.states = self._ba(self.states, kf, pred.bool())
                 self._frames_since_ba = 0
                 self.ba_dispatches += 1
-                self.ba_streams_kept += int(needs[own].sum())
+                self.ba_streams_kept += int(mine.sum())
 
     def _ba(self, states, kf, pred):
-        """The masked BA of every stream (``kf [S]``, ``pred [S]``): returns
-        the states, and adds the kept streams' LM steps to the counter."""
-        states, lm_steps = self._solve(states, kf, pred)
-        self._ba_lm_steps += lm_steps
-        return states
+        """Local BA of the streams ``pred [S]`` marks, each at its keyframe
+        ``kf [S]``: gathers them, solves only them, and returns new
+        ``[S, ...]`` states holding their results and every other stream's
+        leaves as they were (``states`` itself is not written, nor solved
+        at all where ``pred`` marks none).  Adds the solved streams' LM steps
+        to the counter.  The rows come from ``_drain_ba``'s host record;
+        called without them, it reads them from ``pred`` (a sync)."""
+        rows, self._kept_rows = self._kept_rows, None
+        if rows is None:
+            rows = pred.nonzero().flatten()
+        n = rows.numel()
+        if not n:
+            return states
+        # a batch of one rounds otherwise than batches of two or more, which
+        # agree to the bit: a lone stream is solved beside a copy of itself,
+        # so its result does not depend on how many others asked with it
+        # (nor on how the streams are split over ranks)
+        take = rows if n > 1 else rows.repeat(2)
+        self.ba_streams_solved += take.numel()
+        solved, lm_steps = self._solve(pytree.tree_map(lambda x: x.index_select(0, take), states),
+                                       kf.index_select(0, take))
+        self._ba_lm_steps.index_add_(0, rows, lm_steps[:n].to(self._ba_lm_steps.dtype))
+        return pytree.tree_map(lambda old, new: old.index_copy(0, rows, new[:n]), states, solved)
 
     def counters(self) -> dict:
         """Local BA's work since construction, as host ints, over this
-        rank's streams: dispatches, streams solved (every stream, every
-        dispatch) and kept (those whose record asked for BA), the LM
-        iterations run for the kept streams and those whose step was taken.
-        Reads the device once; the step path never calls it."""
+        rank's streams: dispatches, streams solved (the rows gathered into
+        a solve, a lone stream's copy included) and kept (those whose record
+        asked for BA), the LM iterations run for the kept streams and those
+        whose step was taken.  Reads the device once; the step path never calls it."""
         n, kept = self.ba_dispatches, self.ba_streams_kept
-        return dict(ba_dispatches=n, ba_streams_solved=n * len(self.streams), ba_streams_kept=kept,
+        return dict(ba_dispatches=n, ba_streams_solved=self.ba_streams_solved, ba_streams_kept=kept,
                     ba_lm_iterations=2 * self.cfg.ba_iterations * kept, ba_lm_steps=int(self._ba_lm_steps.sum()))
 
     def finish(self) -> None:
@@ -209,12 +235,25 @@ def _apply_updates_packed(cfg, camera, state, inter):
     return state, out.packed
 
 
-def _masked_ba(cfg, camera, state, kf, pred):
-    """``ba_step`` on one stream whose result every leaf takes only where
-    ``pred`` (mesh.py:125-129); returns ``(state, LM steps taken)``, the
-    steps 0 where not ``pred``."""
+def _ba_one(cfg, camera, state, kf):
+    """``ba_step`` on one stream; returns ``(state, LM steps taken)``.  It
+    is looked up on ``backend`` at each call, so a wrapper set there (a
+    profiler span, a test's spy) sees every dispatch."""
     new_state, out = backend.ba_step(cfg, camera, state, kf)
-    return pytree.tree_map(lambda a, b: torch.where(pred, a, b), new_state, state), torch.where(pred, out.lm_steps, 0)
+    return new_state, out.lm_steps
+
+
+def _to_device(device, *arrays):
+    """Host integer or bool arrays -> int64 tensors on ``device``, in one
+    copy; on CUDA from pinned memory and not waited for, so the host goes
+    on enqueuing while it lands (the stream orders it before their use)."""
+    sizes = [a.size for a in arrays]
+    flat = torch.from_numpy(np.concatenate([np.asarray(a, np.int64).ravel() for a in arrays]))
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    else:
+        flat = flat.to(device)
+    return flat.split(sizes)
 
 
 class _HostRecord:

@@ -12,6 +12,10 @@ opened where each layer's work runs) and its BA work counters
   steps taken, against a hand count from per-stream ``ba_step`` calls; and
   ``BAOutput.lm_steps`` against a plain recount of the steps ``_lm_phase``
   took.
+- The fleet's BA dispatch solves only the streams its record asked for,
+  as ``ba_step`` vmapped over them alone (a lone stream beside a copy of
+  itself), leaves the others and its input untouched, and reads nothing
+  back from the device.
 """
 
 import contextlib
@@ -166,41 +170,176 @@ def test_single_stream_counters(monkeypatch):
                                  ba_lm_iterations=2 * cfg.ba_iterations * n, ba_lm_steps=sum(steps))
 
 
-def test_masked_fleet_dispatch_counts_the_kept_streams():
-    """One dispatch whose lagged record asks BA of streams 0 and 2 of 3:
-    every stream is solved, two are kept, and the counted LM steps are the
-    sum of those two streams' ``BAOutput.lm_steps`` from ``ba_step`` on the
-    same batch of 3.  (A batch of 3 rounds its float sums otherwise than a
-    batch of 1, which moves where LM stops: one stream's ``ba_step`` alone
-    can count other steps.)"""
+def _fleet_before_ba(n_streams):
+    """A ``MultiStreamVO`` of ``n_streams`` after ``BA_LAG`` steps (no
+    dispatch yet), its maps moved 1 cm so that LM takes steps; returns it
+    and the per-stream states it now holds."""
     cfg = _cfg()
-    seqs = _seqs(3)
-    vo = MultiStreamVO(cfg, 3, device="cpu")
+    seqs = _seqs(n_streams)
+    vo = MultiStreamVO(cfg, n_streams, device="cpu")
     for i in range(mesh.BA_LAG):  # records still in flight: no dispatch yet
         vo.step(*_batch(seqs, i))
     assert vo.counters()["ba_dispatches"] == 0
-    before = [mapstate.unstack_state(vo.states, s) for s in range(3)]
-    # the map moved 1 cm, so that LM takes steps
+    before = [mapstate.unstack_state(vo.states, s) for s in range(n_streams)]
     before = [s.replace(mp_pos=s.mp_pos + 0.01 * torch.randn(s.mp_pos.shape, generator=torch.Generator().manual_seed(k)))
               for k, s in enumerate(before)]
     vo.states = mapstate.stack_states(before)
+    return vo, before
+
+
+def _dispatch_ba(vo, asking):
+    """One dispatch from a lagged record whose streams ``asking`` ask for BA
+    at their reference keyframe."""
     f = frontend.StepOutput._FIELDS
-    rec = torch.zeros(3, frontend.StepOutput.SIZE)
+    rec = torch.zeros(vo.n_streams, frontend.StepOutput.SIZE)
     rec[:, f["kf_slot"]] = vo.states.ref_kf.float()
-    rec[[0, 2], f["needs_ba"]] = 1.0
+    rec[asking, f["needs_ba"]] = 1.0
     vo._ba_pending.clear()
     vo._ba_pending.append(mesh._HostRecord(rec))
     vo._drain_ba(0)
+
+
+def _batched_ba(cfg, states):
+    """``ba_step`` vmapped over ``states`` at their reference keyframes:
+    ``(states, lm_steps)``."""
     camera = Camera.from_config(cfg)
-    batched = torch.func.vmap(lambda st, kf: backend.ba_step(cfg, camera, st, kf)[1].lm_steps)
-    per_stream = batched(mapstate.stack_states(before), torch.stack([s.ref_kf for s in before]).long()).tolist()
-    lm_steps = per_stream[0] + per_stream[2]
-    assert lm_steps > 0 and per_stream[1] > 0
-    assert vo.counters() == dict(ba_dispatches=1, ba_streams_solved=3, ba_streams_kept=2,
+
+    def one(state, kf):
+        new, out = backend.ba_step(cfg, camera, state, kf)
+        return new, out.lm_steps
+
+    stacked = mapstate.stack_states(states)
+    return torch.func.vmap(one)(stacked, stacked.ref_kf.long())
+
+
+def test_masked_fleet_dispatch_counts_the_kept_streams():
+    """One dispatch whose lagged record asks BA of streams 0 and 2 of 3:
+    those two are solved and kept, and the counted LM steps are the sum of
+    their ``BAOutput.lm_steps`` from ``ba_step`` on the batch of those two.
+    (A batch of 2 rounds its float sums otherwise than a batch of 1, which
+    moves where LM stops: one stream's ``ba_step`` alone can count other
+    steps.)  Stream 1, which would take steps of its own, is not counted."""
+    vo, before = _fleet_before_ba(3)
+    cfg = vo.cfg
+    _dispatch_ba(vo, [0, 2])
+    _, per_stream = _batched_ba(cfg, [before[0], before[2]])
+    lm_steps = int(per_stream.sum())
+    _, alone = backend.ba_step(cfg, Camera.from_config(cfg), before[1], before[1].ref_kf.long())
+    assert lm_steps > 0 and int(alone.lm_steps) > 0
+    assert vo.counters() == dict(ba_dispatches=1, ba_streams_solved=2, ba_streams_kept=2,
                                  ba_lm_iterations=2 * cfg.ba_iterations * 2, ba_lm_steps=lm_steps)
     left = mapstate.state_to_numpy(mapstate.unstack_state(vo.states, 1))
     for name, value in mapstate.state_to_numpy(before[1]).items():
         np.testing.assert_array_equal(left[name], value, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def fleet4():
+    vo, before = _fleet_before_ba(4)
+    return vo, before, vo._solve
+
+
+def _fresh(fleet):
+    """The fixture's fleet back at its states before BA, its counters at 0
+    and ``_solve`` wrapped to record the leading dimension of each batch it
+    receives; returns the fleet, the per-stream states and that record."""
+    vo, before, solve = fleet
+    vo.states = mapstate.stack_states(before)
+    vo.ba_dispatches = vo.ba_streams_solved = vo.ba_streams_kept = 0
+    vo._ba_lm_steps.zero_()
+    sizes = []
+
+    def spied(states, kf):
+        sizes.append((states.kf_pose.shape[0], kf.shape[0]))
+        return solve(states, kf)
+
+    vo._solve = spied
+    return vo, before, sizes
+
+
+@pytest.mark.parametrize("asking, batch", [([1, 3], [1, 3]), ([2], [2, 2])])
+def test_fleet_ba_solves_only_the_kept_streams(fleet4, asking, batch):
+    """A 4-stream dispatch whose record asks BA of streams ``asking``: the
+    vmapped solve receives the batch of those streams alone (a lone stream
+    beside a copy of itself), their results equal ``ba_step`` vmapped over
+    that batch to the bit, the other streams are left as they were, and
+    the ``states`` handed to ``_ba`` are not written."""
+    vo, before, sizes = _fresh(fleet4)
+    handed = []
+    ba = vo._ba
+
+    def kept_args(states, kf, pred):
+        handed.append((states, mapstate.state_to_numpy(states)))
+        return ba(states, kf, pred)
+
+    vo._ba = kept_args
+    try:
+        _dispatch_ba(vo, asking)
+    finally:
+        del vo._ba
+    assert sizes == [(len(batch), len(batch))]
+    want, lm_steps = _batched_ba(vo.cfg, [before[s] for s in batch])
+    for k, s in enumerate(asking):
+        got = mapstate.state_to_numpy(mapstate.unstack_state(vo.states, s))
+        for name, value in mapstate.state_to_numpy(mapstate.unstack_state(want, k)).items():
+            np.testing.assert_array_equal(got[name], value, err_msg=f"stream {s}: {name}")
+    for s in sorted(set(range(4)) - set(asking)):
+        got = mapstate.state_to_numpy(mapstate.unstack_state(vo.states, s))
+        for name, value in mapstate.state_to_numpy(before[s]).items():
+            np.testing.assert_array_equal(got[name], value, err_msg=f"stream {s}: {name}")
+    (states, pre), = handed
+    for name, value in mapstate.state_to_numpy(states).items():
+        np.testing.assert_array_equal(value, pre[name], err_msg=name)
+    assert not np.array_equal(mapstate.state_to_numpy(vo.states)["mp_pos"], pre["mp_pos"])  # BA moved points
+    n = len(asking)
+    assert vo.counters() == dict(ba_dispatches=1, ba_streams_solved=len(batch), ba_streams_kept=n,
+                                 ba_lm_iterations=2 * vo.cfg.ba_iterations * n, ba_lm_steps=int(lm_steps[:n].sum()))
+
+
+def test_fleet_ba_with_no_kept_stream_runs_no_solve(fleet4):
+    """``_ba`` with an all-False ``pred`` (a rank whose own streams asked
+    for nothing) runs no solve and returns the states unchanged."""
+    vo, before, sizes = _fresh(fleet4)
+    states = vo.states
+    pre = mapstate.state_to_numpy(states)
+    out = vo._ba(states, states.ref_kf.long(), torch.zeros(4, dtype=torch.bool))
+    assert sizes == []
+    for name, value in mapstate.state_to_numpy(out).items():
+        np.testing.assert_array_equal(value, pre[name], err_msg=name)
+    assert vo.counters()["ba_streams_solved"] == 0 and vo.counters()["ba_lm_steps"] == 0
+
+
+READS = ("nonzero", "item", "cpu", "tolist", "numpy", "__bool__", "__int__", "__float__")
+
+
+def test_fleet_ba_dispatch_reads_nothing_back(fleet4, monkeypatch):
+    """The dispatch takes the kept rows from the host's record: inside the
+    ``_ba`` that ``_drain_ba`` calls, no tensor is read back to the host
+    (``nonzero``, ``item``, ``cpu``, ``tolist``, ``numpy``, truth or number
+    conversion).  The same reads are allowed again once it returns."""
+    vo, _, _ = _fresh(fleet4)
+    ba, seen = vo._ba, []
+
+    def guarded(*args):
+        def refuse(name):
+            def read(*a, **k):
+                seen.append(name)
+                raise AssertionError(f"{name} read a tensor back inside the BA dispatch")
+            return read
+
+        with monkeypatch.context() as m:
+            for name in READS:
+                m.setattr(torch.Tensor, name, refuse(name))
+            m.setattr(torch, "nonzero", refuse("torch.nonzero"))
+            m.setattr(torch, "argwhere", refuse("torch.argwhere"))
+            return ba(*args)
+
+    vo._ba = guarded
+    try:
+        _dispatch_ba(vo, [0, 3])
+    finally:
+        del vo._ba
+    assert seen == [] and vo.counters()["ba_streams_solved"] == 2
 
 
 def test_ba_lm_steps_is_a_recount_of_the_steps_taken():
