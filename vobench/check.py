@@ -22,7 +22,13 @@ runs the same step from the same state and frame in two parts:
   point is compared to its own counterpart, whatever the rounding of the
   pose that placed it.
 
-The same is done for a BA dispatch (:func:`compare_ba`).  What this skips
+The same is done for a BA dispatch (:func:`compare_ba`) and, where the
+program closes loops online, for a relaxation (:func:`compare_relax`): the
+reference computes it again from the program's snapshot (edge counts and
+keyframe deltas, ``relax_edges_off``, ``relax_kf_gap_um``,
+``relax_rot_gap_urad``), applies its own to the program's state before the
+apply (``relax_map_off``, ``relax_map_gap_um``) and corrects the program's
+uncorrected poses with it (``relax_traj_gap_um``).  What this skips
 is checked on its own: the initial state against the one the reference
 builds from the seed (``init_off``), the state the program carries into the
 next step against the one the step left (``carry_off``), and the host's BA
@@ -52,9 +58,10 @@ EXACT = ("init_off", "decisions_off", "carry_off", "ba_schedule_off")
 def reference_modules():
     """The reference's modules (imported here, after the window)."""
     from vobench.reference import camera, config, mapstate, random
-    from vobench.reference.pipeline import backend, frontend
+    from vobench.reference.pipeline import backend, frontend, globalopt
 
-    return dict(camera=camera, config=config, mapstate=mapstate, random=random, backend=backend, frontend=frontend)
+    return dict(camera=camera, config=config, mapstate=mapstate, random=random, backend=backend, frontend=frontend,
+                globalopt=globalopt)
 
 
 @contextlib.contextmanager
@@ -84,7 +91,10 @@ class Sampler:
     and, at the next step, the state carried into it.  Each BA dispatch is
     logged with ``context``, the
     index of the record that asked for it; an armed BA sample copies the
-    state before and after the dispatch.
+    state before and after the dispatch.  Of the relaxations computed in the
+    window, the first ``relax_wanted`` that act are kept with their
+    snapshot, the state before and after their apply and the per-frame
+    poses before and after their correction.
     """
 
     def __init__(self, rows):
@@ -98,6 +108,10 @@ class Sampler:
         self.ba: list = []
         self.dispatches: list = []
         self.init: dict | None = None
+        self.relax_wanted = 0
+        self.relax: list = []  # the kept relaxations
+        self.relax_seen: list = []  # (acted, max correction m) of each computed in the window
+        self._apply = None  # the kept relaxation being applied
 
     def take(self, x: torch.Tensor) -> torch.Tensor:
         if self.rows is None:
@@ -137,6 +151,33 @@ class Sampler:
             self._ba["post"] = self.take_all(leaves(post))
             self.ba.append(self._ba)
             self._ba = None
+
+    def on_relax(self, snapshot, kwargs: dict, rlx, in_window: bool) -> None:
+        """A relaxation computed from ``snapshot`` (the program's private
+        clone of its state, kept as it is: on the worker thread nothing is
+        copied) with ``compute_relaxation``'s keyword arguments."""
+        if not in_window:
+            return
+        acted = bool(rlx.report.kf_ts.size)
+        self.relax_seen.append((acted, float(rlx.report.max_correction_m)))
+        if acted and len(self.relax) < self.relax_wanted:
+            self.relax.append(dict(snap={n: v[None] for n, v in leaves(snapshot).items()}, kwargs=dict(kwargs), rlx=rlx))
+
+    def before_apply(self, state, rlx) -> None:
+        self._apply = next((c for c in self.relax if c["rlx"] is rlx and "pre" not in c), None)
+        if self._apply is not None:
+            self._apply["pre"] = self.take_all(leaves(state))
+
+    def on_apply(self, state) -> None:
+        if self._apply is not None:
+            self._apply["post"] = self.take_all(leaves(state))
+
+    def on_correct(self, report, frame_ts, poses_w_c, out) -> None:
+        """The per-frame poses before and after the correction that follows
+        the apply."""
+        if self._apply is not None and self._apply["rlx"].report is report:
+            self._apply.update(ts=np.array(frame_ts), poses=np.array(poses_w_c), corrected=np.array(out))
+            self._apply = None
 
 
 def expected_dispatches(needs_ba: list, gap: int) -> list:
@@ -224,6 +265,55 @@ def compare_ba(prog: dict, ref: dict) -> dict:
     return dict(ba_gap_um=1e6 * gap, ba_flags_off=flags)
 
 
+def _quat_angles(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Angles (rad) between unit quaternions ``[..., 4]`` (w, x, y, z), sign-free."""
+    a, b = a.double(), b.double()
+    w = (a * b).sum(-1)
+    xyz = a[..., :1] * b[..., 1:] - b[..., :1] * a[..., 1:] - torch.linalg.cross(a[..., 1:], b[..., 1:])
+    return 2.0 * torch.atan2(xyz.norm(dim=-1), w.abs())
+
+
+def _max_gap(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor) -> float:
+    """Largest distance between the rows of ``a`` and ``b [..., 3]`` under ``mask``."""
+    gap = (a.cpu() - b.cpu()).double().norm(dim=-1)[mask.cpu()]
+    return float(gap.max()) if gap.numel() else 0.0
+
+
+def compare_relax(prog, ref, kf_valid: torch.Tensor) -> dict:
+    """Two relaxations computed from one snapshot (``kf_valid`` its keyframe
+    slots): edge counts off (co-observation, loop, appearance) and the
+    largest gaps of the keyframe deltas' translations (µm) and rotations
+    (µrad)."""
+    p, r = prog.report, ref.report
+    edges = sum(abs(getattr(p, n) - getattr(r, n)) for n in ("num_edges", "num_loop_edges", "num_appearance_edges"))
+    dp, dr = prog.delta_w.cpu(), ref.delta_w.cpu()
+    rot = _quat_angles(dp[:, :4], dr[:, :4])[kf_valid.cpu()]
+    return dict(relax_edges_off=edges, relax_kf_gap_um=1e6 * _max_gap(dp[:, 4:7], dr[:, 4:7], kf_valid),
+                relax_rot_gap_urad=1e6 * float(rot.max()) if rot.numel() else 0.0)
+
+
+MOVED = ("kf_pose", "mp_pos", "prev_pose")  # the leaves a relaxation's apply moves
+
+
+def compare_relax_map(prog: dict, ref: dict) -> dict:
+    """Two states after a relaxation's apply to one state: elements off in
+    the leaves the apply leaves alone, and the largest gap (µm) of the
+    keyframe poses' and live map points' positions and of the tracking
+    prior."""
+    off = sum(int((prog[n].cpu() != ref[n].cpu()).sum()) for n in prog if n not in MOVED)
+    gap = max(_max_gap(prog["kf_pose"][..., 4:7], ref["kf_pose"][..., 4:7], prog["kf_valid"]),
+              _max_gap(prog["mp_pos"], ref["mp_pos"], prog["mp_valid"]),
+              _max_gap(prog["prev_pose"][..., 4:7], ref["prev_pose"][..., 4:7], torch.ones((), dtype=torch.bool)))
+    return dict(relax_map_off=off, relax_map_gap_um=1e6 * gap)
+
+
+def compare_traj(prog: np.ndarray, ref: np.ndarray) -> dict:
+    """Two corrections of the same per-frame ``T_w_c`` rows: the largest
+    translation gap (µm)."""
+    gap = np.linalg.norm(prog[:, 4:7].astype(np.float64) - ref[:, 4:7], axis=1)
+    return dict(relax_traj_gap_um=1e6 * float(gap.max(initial=0.0)))
+
+
 class Reference:
     """The reference, built for one configuration on one device."""
 
@@ -280,6 +370,18 @@ class Reference:
             post, _ = self.m["backend"].ba_step(self.cfg, self.camera, pre, kf_slot)
         return leaves(post)
 
+    def relax(self, snap, kwargs: dict, mode: str):
+        """A relaxation computed from a state (``compute_relaxation``)."""
+        with precision(mode), torch.no_grad():
+            return self.m["globalopt"].compute_relaxation(snap, self.cfg, **kwargs)
+
+    def apply(self, pre, rlx, mode: str) -> dict:
+        with precision(mode), torch.no_grad():
+            return leaves(self.m["globalopt"].apply_relaxation(pre, rlx))
+
+    def correct(self, report, frame_ts, poses_w_c) -> np.ndarray:
+        return self.m["globalopt"].correct_trajectory(report, frame_ts, poses_w_c)
+
 
 class _Features:
     def __init__(self, xy, desc, valid):
@@ -303,6 +405,17 @@ def _judge(ref: Reference, pre: dict, k: int, frame, prog: dict, nums: dict) -> 
     _worst(nums, compare_map(prog["post"], ref.update(ref.state(pre, k), prog["inter"], "fp32")))
 
 
+def _relax_outcome(ref: Reference, cap: dict, mode: str):
+    """One sampled relaxation worked out again by the reference: computed from
+    the program's snapshot, applied to the program's state before its apply,
+    and correcting the program's uncorrected poses (None where the program
+    had none to correct)."""
+    rlx = ref.relax(ref.state(cap["snap"], 0), cap["kwargs"], mode)
+    post = ref.apply(ref.state(cap["pre"], 0), rlx, mode)
+    traj = ref.correct(rlx.report, cap["ts"], cap["poses"]) if "corrected" in cap else None
+    return rlx, post, traj
+
+
 def evaluate(ref: Reference, sampler: Sampler, frames: dict, streams: list, seed: int, batched: bool,
              records: list, decided: int, gap: int, control: bool = False) -> dict:
     """The compared numbers of a run, the worst over its samples; ``decided``
@@ -320,8 +433,11 @@ def evaluate(ref: Reference, sampler: Sampler, frames: dict, streams: list, seed
             continue
         for k in range(len(streams)):
             frame = tuple(x[k] for x in frames[step][:2]) + (frames[step][2],)
+            # the record as the step produced it where the entry kept it (a
+            # relaxation may have corrected the one the host read since)
+            record = cap["record"].double().cpu().numpy() if "record" in cap else records[step][streams[k]]
             prog = dict(inter={n: v[k] for n, v in cap["inter"].items()}, post={n: v[k] for n, v in cap["post"].items()},
-                        record=records[step][streams[k]])
+                        record=record)
             _judge(ref, cap["pre"], k, frame, prog, nums)
             if "carried" in cap:
                 nums["carry_off"] += carry_off(prog["post"], {n: v[k] for n, v in cap["carried"].items()})
@@ -342,19 +458,43 @@ def evaluate(ref: Reference, sampler: Sampler, frames: dict, streams: list, seed
             n_ba += 1
             if control and asked:
                 _worst(ctl, compare_ba(ref.ba(ref.state(cap["pre"], k), int(cap["kf"][k]), "tf32"), r))
+    n_relax = 0
+    for cap in sampler.relax:
+        if "post" not in cap:
+            continue
+        kf_valid = cap["snap"]["kf_valid"][0]
+        r, r_post, r_traj = _relax_outcome(ref, cap, "fp32")
+        _worst(nums, compare_relax(cap["rlx"], r, kf_valid))
+        _worst(nums, compare_relax_map({n: v[0] for n, v in cap["post"].items()}, r_post))
+        if r_traj is not None:
+            _worst(nums, compare_traj(cap["corrected"], r_traj))
+        n_relax += 1
+        if control:
+            c, c_post, c_traj = _relax_outcome(ref, cap, "tf32")
+            _worst(ctl, compare_relax(c, r, kf_valid))
+            _worst(ctl, compare_relax_map(c_post, r_post))
+            if r_traj is not None:
+                _worst(ctl, compare_traj(c_traj, r_traj))
+    if sampler.relax_seen:
+        nums["relax_computed"] = len(sampler.relax_seen)
+        nums["relax_acted"] = sum(a for a, _ in sampler.relax_seen)
+        nums["relax_max_correction_um"] = 1e6 * max(c for _, c in sampler.relax_seen)
     needs = [bool(np.any(rec[:, REC["needs_ba"]] > 0.5)) for rec in records[:decided]]
     want = set(expected_dispatches(needs, gap))
     seen = {d for d in sampler.dispatches if d is not None}
     nums["ba_schedule_off"] = len(want ^ seen)
-    out = dict(numbers=nums, track_samples=n_track, ba_samples=n_ba)
+    out = dict(numbers=nums, track_samples=n_track, ba_samples=n_ba, relax_samples=n_relax)
     if control:
         out["control"] = ctl
     return out
 
 
-def verdict(numbers: dict, limits: dict, need_ba: bool, track_samples: int, ba_samples: int) -> tuple[bool, dict]:
+def verdict(numbers: dict, limits: dict, need_ba: bool, track_samples: int, ba_samples: int,
+            relax_samples: int | None = None) -> tuple[bool, dict]:
     """``correct`` and each compared number beside its limit.  A number the
-    run has no sample for, or a missing sample kind, makes it not correct."""
+    run has no sample for, or a missing sample kind, makes it not correct:
+    ``relax_samples`` (not None where the cell relaxes) counts the sampled
+    relaxations that acted."""
     shown, ok = {}, track_samples > 0 and (ba_samples > 0 or not need_ba)
     for name in EXACT:
         v = numbers.get(name)
@@ -367,4 +507,7 @@ def verdict(numbers: dict, limits: dict, need_ba: bool, track_samples: int, ba_s
     shown["samples"] = {"value": track_samples, "limit": 1}
     if need_ba:
         shown["ba_samples"] = {"value": ba_samples, "limit": 1}
+    if relax_samples is not None:
+        shown["relax_samples"] = {"value": relax_samples, "limit": 1}
+        ok = ok and relax_samples > 0
     return bool(ok), shown

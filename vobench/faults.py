@@ -76,4 +76,36 @@ def half_left_out():
     return _patch(MultiStreamVO, "step", broken)
 
 
-FAULTS = {f.__name__: f for f in (state_unchanged, answer_altered, map_moved, half_left_out)}
+def relax_altered():
+    """Every keyframe delta of a relaxation is 1 cm off in x."""
+    from rgbd_visualodometry_tpu_torch.pipeline import globalopt
+
+    compute = globalopt.compute_relaxation
+
+    def broken(state, cfg, **kwargs):
+        rlx = compute(state, cfg, **kwargs)
+        shift = torch.zeros(7, dtype=rlx.delta_w.dtype, device=rlx.delta_w.device)
+        shift[4] = 0.01
+        rlx.delta_w = torch.where(rlx.snap_valid[:, None], rlx.delta_w + shift, rlx.delta_w)
+        rlx.ref_delta_w = rlx.ref_delta_w + shift
+        return rlx
+
+    return _patch(globalopt, "compute_relaxation", broken)
+
+
+def relax_dropped():
+    """Applying a relaxation returns the live state unchanged."""
+    from rgbd_visualodometry_tpu_torch.pipeline import globalopt
+
+    return _patch(globalopt, "apply_relaxation", lambda state, rlx: state)
+
+
+def relax_uncorrected():
+    """The materialized poses are left as they were after a relaxation."""
+    from rgbd_visualodometry_tpu_torch.pipeline import globalopt
+
+    return _patch(globalopt, "correct_trajectory", lambda report, frame_ts, poses_w_c: poses_w_c)
+
+
+FAULTS = {f.__name__: f for f in (state_unchanged, answer_altered, map_moved, half_left_out, relax_altered,
+                                  relax_dropped, relax_uncorrected)}

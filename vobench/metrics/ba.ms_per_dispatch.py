@@ -1,5 +1,5 @@
-"""Local BA (``pipeline/backend.py`` ``ba_step``, vmapped and masked under
-``MultiStreamVO``): stage time per dispatch."""
+"""Local BA (``pipeline/backend.py`` ``ba_step``, under ``MultiStreamVO``
+vmapped over the streams that asked): stage time per dispatch."""
 
 from vobench.metrics import _stage
 

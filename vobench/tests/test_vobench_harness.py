@@ -1,5 +1,6 @@
 """The harness's control flow on the CPU at a tiny size (the port's plain
-kernels), and the faults that must make ``correct`` false."""
+kernels), and the faults that must make ``correct`` false.  ``tiny_loop``
+drives ``VisualOdometry.run`` with online loop closure every 2 keyframes."""
 
 import pytest
 
@@ -14,7 +15,9 @@ def here(tmp_path_factory):
     return tiny_copy(tmp_path_factory.mktemp("vobench"))
 
 
-def _run(here, cell, traced=False, seconds=4.0):
+def _run(here, cell, traced=False, seconds=None):
+    # the loop cell's window holds a relaxation from its start to its apply
+    seconds = seconds or (10.0 if cell == "tiny_loop" else 4.0)
     return harness.run_cell(harness.load_cell(cell, here), SEED, seconds, traced, device="cpu")
 
 
@@ -28,6 +31,24 @@ def test_untraced_run(here, cell):
     assert r["attempted"] > 0 and r["failed"] == 0
     assert r["checks"]["samples"]["value"] >= 1 and r["checks"]["ba_samples"]["value"] >= 1
     assert all(v["value"] is not None for v in r["checks"].values())
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_loop_run(here, traced):
+    """Relaxations computed in the window are held to the reference, and a
+    traced run reads both relax metrics."""
+    r = _run(here, "tiny_loop", traced=traced, seconds=14.0 if traced else None)
+    assert r["correct"], r["checks"]
+    assert r["failed"] == 0 and r["checks"]["relax_samples"]["value"] >= 1
+    got = r["readings"]
+    assert got["relax_acted"] >= 1 and got["relax_max_correction_um"] > 0
+    assert {"relax_edges_off", "relax_kf_gap_um", "relax_map_off", "relax_map_gap_um", "relax_traj_gap_um"} <= set(got)
+    if traced:
+        assert r["metrics"]["relax.compute_ms"]["value"] > 0 and r["metrics"]["relax.apply_ms"]["value"] > 0
+        # the entry span holds process_async alone, not the relaxation's wait
+        assert r["metrics"]["host.enqueue_ms"]["value"] < r["metrics"]["relax.compute_ms"]["value"]
+    else:
+        assert set(r["metrics"]) == {"frames_per_s", "pose_latency_ms_p90", "setup_s"}
 
 
 def test_traced_run(here):
@@ -44,6 +65,8 @@ def test_traced_run(here):
     ("tiny_fleet", "answer_altered", "pose_gap_um"), ("tiny_single", "answer_altered", "pose_gap_um"),
     ("tiny_fleet", "map_moved", "map_gap_um"), ("tiny_single", "map_moved", "map_gap_um"),
     ("tiny_fleet", "half_left_out", None),
+    ("tiny_loop", "relax_altered", "relax_kf_gap_um"), ("tiny_loop", "relax_dropped", "relax_map_gap_um"),
+    ("tiny_loop", "relax_uncorrected", "relax_traj_gap_um"),
 ])
 def test_fault_is_not_correct(here, cell, fault, number):
     undo = faults.FAULTS[fault]()

@@ -41,7 +41,8 @@ check.reference_modules()
 def test_reference_loads_nothing_of_the_program():
     loaded = _loaded("""
 from vobench.reference import camera, config, mapstate, random
-from vobench.reference.pipeline import frontend, backend
+from vobench.reference.pipeline import frontend, backend, globalopt
+from vobench.reference.ops import loopclosure, posegraph
 from vobench import check
 check.reference_modules()
 """)

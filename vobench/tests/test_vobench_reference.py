@@ -1,15 +1,17 @@
 """The frozen reference against the port's CPU path (plain kernels there too):
-at 160x120 over a few frames, every record and state leaf equal, and a BA
-dispatch equal."""
+at 160x120 over a few frames, every record and state leaf equal, a BA
+dispatch equal, and a loop-closure relaxation, its apply and its trajectory
+correction equal."""
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from rgbd_visualodometry_tpu_torch.camera import Camera
 from rgbd_visualodometry_tpu_torch.config import VOConfig
 from rgbd_visualodometry_tpu_torch import mapstate
-from rgbd_visualodometry_tpu_torch.pipeline import backend, frontend
+from rgbd_visualodometry_tpu_torch.pipeline import backend, frontend, globalopt
 from vobench import check, frames
 from vobench.tests.tiny import CAMERA, TINY
 
@@ -47,3 +49,27 @@ def test_reference_follows_the_port_on_the_cpu():
     got = ref.ba(ref.m["mapstate"].VOState(**{n: v.clone() for n, v in _leaves(rstate).items()}), kf, "fp32")
     assert check.compare_ba(_leaves(state), got) == dict(ba_gap_um=0.0, ba_flags_off=0)
     assert all(torch.equal(leaf, got[n]) for n, leaf in _leaves(state).items())
+
+
+def test_reference_relaxation_follows_the_port_on_the_cpu():
+    settings = dict(TINY, relax_every_kf=2, relax_loop_gap_s=0.3)
+    cfg = VOConfig().replace(**settings)
+    ref = check.Reference(settings, "cpu")
+    ring = frames.Ring(11, dict(SWEEP, period=120), CAMERA, "cpu", max_frames=32)
+    cam = Camera.from_config(cfg)
+    state = mapstate.init_state(cfg, 3, "cpu")
+    for i in range(24):  # past the 0.3 s loop gap, so that loop edges exist
+        state, _ = frontend.track_step(cfg, cam, state, frontend.FrameInput(*ring.frame(i, batched=False)))
+    kw = dict(loop_gap_s=cfg.relax_loop_gap_s, require_loop=True)
+    got = globalopt.compute_relaxation(state, cfg, **kw)
+    want = ref.relax(ref.state({n: v[None] for n, v in _leaves(state).items()}, 0), kw, "fp32")
+    assert got.report.num_loop_edges > 0 and got.report.kf_ts.size
+    nums = check.compare_relax(got, want, state.kf_valid)
+    assert nums == dict(relax_edges_off=0, relax_kf_gap_um=0.0, relax_rot_gap_urad=0.0)
+    assert torch.equal(got.delta_w, want.delta_w) and torch.equal(got.ref_delta_w, want.ref_delta_w)
+    post = _leaves(globalopt.apply_relaxation(state, got))
+    assert check.compare_relax_map(post, ref.apply(ref.state({n: v[None] for n, v in _leaves(state).items()}, 0), want,
+                                                   "fp32")) == dict(relax_map_off=0, relax_map_gap_um=0.0)
+    ts = np.arange(24, dtype=np.float64) / 30.0
+    poses = np.tile(np.asarray([1.0, 0, 0, 0, 0.1, 0.0, 0.0], np.float32), (24, 1))
+    assert np.array_equal(globalopt.correct_trajectory(got.report, ts, poses), ref.correct(want.report, ts, poses))

@@ -10,7 +10,9 @@ spans it reads in its ``SPANS``.  A span does not synchronise.  Its stage
 time runs from its start on the host to the later of its end on the host
 and the end of the last device operation launched inside it (the
 profiler's host and device events share one clock), so a stage reads the
-same work whether it is bound by its launches or by the device.
+same work whether it is bound by its launches or by the device.  Spans on
+another thread than the traced window's (the relax worker, recorded where
+the profiler records every thread) are kept apart, in ``worker_spans``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ class Spans:
     ``targets`` maps a span name to ``(module, attribute)`` or ``(module,
     attribute, facts)``, where ``facts(args, kwargs)`` returns a small dict
     of host-side facts about the call (its shapes), kept in call order for
-    the calls made while :attr:`recording`."""
+    the calls made while :attr:`recording`.  An attribute may be dotted
+    (``Class.method``): the span then wraps the class's method."""
 
     def __init__(self, targets: dict):
         self.targets = targets
@@ -46,11 +49,14 @@ class Spans:
 
     def install(self) -> None:
         for name, target in self.targets.items():
-            mod = importlib.import_module(target[0])
-            orig = getattr(mod, target[1])
+            owner = importlib.import_module(target[0])
+            *path, attr = target[1].split(".")
+            for part in path:
+                owner = getattr(owner, part)
+            orig = getattr(owner, attr)
             facts = target[2] if len(target) > 2 else None
-            setattr(mod, target[1], self._wrap(name, orig, facts))
-            self._saved.append((mod, target[1], orig))
+            setattr(owner, attr, self._wrap(name, orig, facts))
+            self._saved.append((owner, attr, orig))
 
     def _wrap(self, name, orig, facts):
         label = PREFIX + name
@@ -86,6 +92,10 @@ class TraceData:
     launch_calls: int
     kernel_counts: dict  # device kernel name -> count
     breakdown: dict
+    # span name -> [Span] of the spans on other threads than the window's,
+    # each wholly inside the window (recorded where the profiler records
+    # every thread: the relax worker of a relaxing cell)
+    worker_spans: dict = dataclasses.field(default_factory=dict)
 
 
 def _union(starts: np.ndarray, ends: np.ndarray):
@@ -135,26 +145,37 @@ def reduce(events, facts: dict) -> TraceData:
     by_corr = {}
     for i, d in enumerate(dev):
         by_corr.setdefault(d[key], []).append(i)
-    rt_main = sorted((r[0], r[2], r[3]) for r in rt if r[1] == main)
-    rt_ts = [r[0] for r in rt_main]
+    rt_by: dict = {}  # thread -> its runtime calls (start, correlation, name), in order
+    for r in sorted(rt):
+        rt_by.setdefault(r[1], []).append((r[0], r[2], r[3]))
+    rt_ts = {tid: [r[0] for r in calls] for tid, calls in rt_by.items()}
+    rt_main = rt_by.get(main, [])
     launch_calls = sum(1 for r in rt_main if w0 <= r[0] <= w1 and r[2] in LAUNCH_CALLS)
 
-    spans: dict = {}
-    seen: dict = {}
-    for a0, a1, tid, name in sorted(ann):
-        if tid != main or not name.startswith(PREFIX) or name == WINDOW or not (w0 <= a0 <= w1):
-            continue
-        short = name[len(PREFIX):]
-        k = seen.get(short, 0)
-        seen[short] = k + 1
+    def span(a0, a1, tid, f) -> Span:
+        calls, ts = rt_by.get(tid, []), rt_ts.get(tid, [])
         end, device_ns = a1, 0
-        for j in range(bisect.bisect_left(rt_ts, a0), bisect.bisect_right(rt_ts, a1)):
-            for i in by_corr.get(rt_main[j][1], ()):
+        for j in range(bisect.bisect_left(ts, a0), bisect.bisect_right(ts, a1)):
+            for i in by_corr.get(calls[j][1], ()):
                 end = max(end, int(dev_end[i]))
                 device_ns += int(dev_end[i] - dev_start[i])
+        return Span(host_s=(a1 - a0) / 1e9, stage_s=(end - a0) / 1e9, device_s=device_ns / 1e9, facts=f)
+
+    spans: dict = {}
+    worker_spans: dict = {}
+    seen: dict = {}
+    for a0, a1, tid, name in sorted(ann):
+        if not name.startswith(PREFIX) or name == WINDOW or not (w0 <= a0 <= w1):
+            continue
+        short = name[len(PREFIX):]
+        if tid != main:
+            if a1 <= w1:
+                worker_spans.setdefault(short, []).append(span(a0, a1, tid, {}))
+            continue
+        k = seen.get(short, 0)
+        seen[short] = k + 1
         f = facts.get(short, [])
-        spans.setdefault(short, []).append(Span(host_s=(a1 - a0) / 1e9, stage_s=(end - a0) / 1e9,
-                                                device_s=device_ns / 1e9, facts=f[k] if k < len(f) else {}))
+        spans.setdefault(short, []).append(span(a0, a1, tid, f[k] if k < len(f) else {}))
 
     kernel_counts: dict = {}
     per_name: dict = {}
@@ -180,7 +201,7 @@ def reduce(events, facts: dict) -> TraceData:
         idle_gaps.append([f"{span[-1] if span else 'harness'}: {op}"[:160], int(length) / 1e9])
     return TraceData(steps=seen.get("entry", 0), window_s=(w1 - w0) / 1e9, busy_s=busy_ns / 1e9, spans=spans,
                      launch_calls=launch_calls, kernel_counts=kernel_counts,
-                     breakdown={"device_ops": device_ops, "idle_gaps": idle_gaps})
+                     breakdown={"device_ops": device_ops, "idle_gaps": idle_gaps}, worker_spans=worker_spans)
 
 
 def dropped(trace: TraceData, launched: dict) -> list:
