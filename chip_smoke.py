@@ -961,20 +961,30 @@ def _check_relaxations(name, kept, applied) -> None:
         raise AssertionError(f"{name}: the async relaxations differ from compute_relaxation: {bad}")
 
 
+# the tracking step's pose rounds, 4 calls through ops.replay a frame: their
+# first 3 calls at each key (eager, captured, replayed) and every 16th after
+# are held, the relaxation's stages every call
+_POSE_STAGES = ("_ransac", "_refine")
+
+
 def _spy_replays():
     """Patch ``ops.replay.replayed`` (through which ``compute_relaxation``
-    runs its solve and its appearance pair registration on the card) to
-    keep clones of every call's inputs and its outputs.  Returns ``(calls,
-    restore)``."""
+    runs its solve and its appearance pair registration on the card, and
+    the tracking step its RANSAC and pose LM) to keep clones of the inputs
+    and the outputs of the calls :data:`_POSE_STAGES` says.  Returns
+    ``(calls, restore)``."""
     try:
         from rgbd_visualodometry_tpu_torch.ops import replay
     except ImportError:  # a tree from before the replays (tools/port_ab.py): nothing to hold
         return [], lambda: None
-    real, calls = replay.replayed, []
+    real, calls, seen = replay.replayed, [], {}
 
     def spied(fn, *args, **kw):
         out = real(fn, *args, **kw)
-        calls.append((fn, [a.clone() for a in args], kw, out))
+        key = (fn, tuple(a.shape for a in args), tuple(sorted(kw.items())))
+        n = seen[key] = seen.get(key, 0) + 1
+        if fn.__name__ not in _POSE_STAGES or n <= 3 or n % 16 == 0:
+            calls.append((fn, [a.clone() for a in args], kw, out))
         return out
 
     replay.replayed = spied
@@ -1009,7 +1019,8 @@ def replay_mismatches(calls) -> list[str]:
 def _check_replays(name, calls) -> None:
     bad = replay_mismatches(calls)
     solves = sum(fn.__name__ == "_optimize_flat" for fn, *_ in calls)
-    print(f"{name}: {len(calls)} calls through ops.replay ({solves} solves; eager at a new shape, then "
+    rounds = sum(fn.__name__ in _POSE_STAGES for fn, *_ in calls)
+    print(f"{name}: {len(calls)} calls through ops.replay held ({solves} solves, {rounds} pose-round stages; eager at a new shape, then "
           f"captured and replayed), " + (f"NOT equal to eager: {bad}" if bad else
                                "each equal to the bit to the eager call, and each solve to the unpadded one"))
     if bad:

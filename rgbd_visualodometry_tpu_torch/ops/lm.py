@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from rgbd_visualodometry_tpu_torch import camera as cam_mod
-from rgbd_visualodometry_tpu_torch.ops import se3
+from rgbd_visualodometry_tpu_torch.ops import replay, se3
 from rgbd_visualodometry_tpu_torch.ops.smalleig import cholesky_solve
 from rgbd_visualodometry_tpu_torch.utils.profiling import spanned
 
@@ -70,7 +70,7 @@ def lm_pose_round(pose0, pts_w, uv, mask, camera, iterations: int, huber_delta, 
         return torch.sum(maskf * _robust_cost(torch.sum(e * e, dim=-1), huber_delta))
 
     pose = pose0
-    lam = torch.tensor(1e-3, dtype=pts_w.dtype, device=pts_w.device)
+    lam = torch.full((), 1e-3, dtype=pts_w.dtype, device=pts_w.device)
     cost = total_cost(pose0)
     done = torch.zeros((), dtype=torch.bool, device=pts_w.device)
     for _ in range(iterations):
@@ -102,7 +102,18 @@ class PoseRefineResult(NamedTuple):
 @spanned("vo.pose.lm")
 def refine_pose(pose0, pts_w, uv, inlier_mask, camera, iterations: int = 10,
                 huber_delta: float = 7.815**0.5, chi2_outlier: float = 1.0) -> PoseRefineResult:
-    """The reference's two-round schedule (``src/frontend.cpp:256-329``)."""
+    """The reference's two-round schedule (``src/frontend.cpp:256-329``).
+    On CUDA tensors outside ``torch.func.vmap`` it is replayed from one
+    captured CUDA graph per shape and arguments (``ops.replay``)."""
+    return replay.maybe_replayed(
+        _refine, pose0, pts_w, uv, inlier_mask,
+        camera=camera, iterations=iterations, huber_delta=huber_delta, chi2_outlier=chi2_outlier,
+    )
+
+
+def _refine(pose0, pts_w, uv, inlier_mask, *, camera, iterations, huber_delta, chi2_outlier) -> PoseRefineResult:
+    """The body of :func:`refine_pose`, capturable: no host read and no
+    copy from the host."""
     pose1 = lm_pose_round(pose0, pts_w, uv, inlier_mask, camera, iterations, huber_delta)
     e1, _ = reprojection_residuals(pose1, pts_w, uv, camera)
     mask2 = inlier_mask & (torch.sum(e1 * e1, dim=-1) <= chi2_outlier)

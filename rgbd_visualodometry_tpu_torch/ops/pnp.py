@@ -17,7 +17,7 @@ import torch
 
 from rgbd_visualodometry_tpu_torch import camera as cam_mod
 from rgbd_visualodometry_tpu_torch import random as vo_random
-from rgbd_visualodometry_tpu_torch.ops import se3
+from rgbd_visualodometry_tpu_torch.ops import replay, se3
 from rgbd_visualodometry_tpu_torch.ops.packing import top_k
 from rgbd_visualodometry_tpu_torch.ops.smalleig import cholesky_solve, kabsch_quat
 from rgbd_visualodometry_tpu_torch.utils.profiling import spanned
@@ -57,12 +57,24 @@ def ransac_pnp(key, p_world, uv, p_cam_depth, depth_ok, match_valid, seed_pose, 
                n_hypotheses: int = 128, threshold: float = 4.0,
                depth_free_fraction: float = 0.25) -> RansacResult:
     """RANSAC over ``n_hypotheses`` lanes plus the seed lane; ``p_world``,
-    ``p_cam_depth`` ``[M, 3]``, ``uv [M, 2]``, masks ``[M]``."""
+    ``p_cam_depth`` ``[M, 3]``, ``uv [M, 2]``, masks ``[M]``.  On CUDA
+    tensors outside ``torch.func.vmap`` it is replayed from one captured
+    CUDA graph per shape and arguments (``ops.replay``)."""
+    return replay.maybe_replayed(
+        _ransac, key, p_world, uv, p_cam_depth, depth_ok, match_valid, seed_pose,
+        camera=camera, n_hypotheses=n_hypotheses, threshold=threshold, depth_free_fraction=depth_free_fraction,
+    )
+
+
+def _ransac(key, p_world, uv, p_cam_depth, depth_ok, match_valid, seed_pose, *, camera,
+            n_hypotheses, threshold, depth_free_fraction) -> RansacResult:
+    """The body of :func:`ransac_pnp`, capturable: no host read and no copy
+    from the host."""
     m = p_world.shape[0]
     n_free = int(round(n_hypotheses * depth_free_fraction))
     n_depth = n_hypotheses - n_free
     sample_ok = match_valid & depth_ok
-    minus_one = torch.tensor(-1.0, device=p_world.device)
+    minus_one = torch.full((), -1.0, device=p_world.device)
 
     kd, kf = vo_random.split(key)
     noise = vo_random.uniform(kd, (n_depth, m))
@@ -80,7 +92,9 @@ def ransac_pnp(key, p_world, uv, p_cam_depth, depth_ok, match_valid, seed_pose, 
     err2 = torch.sum((proj - uv[None, :, :]) ** 2, dim=-1)
     is_in = match_valid[None, :] & (p_c[..., 2] > 0) & (err2 < threshold * threshold)
     counts = torch.sum(is_in, dim=1)
-    # first lane of the maximal count, like jnp.argmax
+    # first lane of the maximal count, like jnp.argmax; a [1] index, since
+    # indexing by a 0-dim tensor reads it on the host
     lanes = torch.arange(counts.shape[0], device=counts.device)
-    best = torch.min(torch.where(counts == counts.max(), lanes, torch.full_like(lanes, counts.shape[0])))
-    return RansacResult(pose=se3.normalize(hyp[best]), inliers=is_in[best], num_inliers=counts[best])
+    best = torch.min(torch.where(counts == counts.max(), lanes, torch.full_like(lanes, counts.shape[0])))[None]
+    return RansacResult(pose=se3.normalize(hyp.index_select(0, best)[0]), inliers=is_in.index_select(0, best)[0],
+                        num_inliers=counts.index_select(0, best)[0])

@@ -16,11 +16,18 @@ later call replays it.  Inside :func:`deferred` (the async relax worker)
 a call at a key without a graph always runs eagerly and leaves the key to
 :func:`capture_deferred`, which the thread that owns the worker calls once
 the worker is done: no capture runs beside the frame loop, where a
-device-wide synchronise on another thread would be refused.  ``fn`` must read its tensors only from ``args``, take no
+device-wide synchronise on another thread would be refused.  For the
+same reason no thread captures while another is inside :func:`deferred`:
+a key whose second call falls there runs eagerly once more and is
+captured at its next call after the worker.  ``fn`` must read its tensors only from ``args``, take no
 decision on their values on the host and return a tensor or a tuple of
 tensors; a replay returns clones of the captured outputs on the caller's
 stream, equal to the eager call to the bit (``chip_smoke.py`` holds it).
 The graphs live as long as the process, as a compile cache does.
+
+Besides the relaxation's stages, the tracking step's pose rounds
+(``ops.pnp.ransac_pnp``, ``ops.lm.refine_pose``) go through
+:func:`maybe_replayed`: thousands of launches each, on every frame.
 """
 
 from __future__ import annotations
@@ -78,17 +85,24 @@ _seen: set = set()  # keys run eagerly once outside deferred()
 _deferred: dict = {}  # key -> (fn, [(shape, dtype, device)], kw), run eagerly inside deferred()
 _lock = threading.Lock()  # one capture at a time in a process, one caller at a time per graph
 _local = threading.local()
+_deferring = 0  # threads inside deferred(): no capture beside them
 
 
 @contextlib.contextmanager
 def deferred():
     """Calls of :func:`replayed` in this thread, at a key without a graph,
-    run eagerly and leave the capture to :func:`capture_deferred`."""
+    run eagerly and leave the capture to :func:`capture_deferred`; no
+    other thread captures until it ends."""
+    global _deferring
+    with _lock:  # a capture in progress elsewhere ends before this thread launches
+        _deferring += 1
     _local.deferred = True
     try:
         yield
     finally:
         _local.deferred = False
+        with _lock:
+            _deferring -= 1
 
 
 def replayed(fn, *args: torch.Tensor, **kw):
@@ -99,12 +113,20 @@ def replayed(fn, *args: torch.Tensor, **kw):
         if key not in _graphs:
             if getattr(_local, "deferred", False):
                 _deferred.setdefault(key, (fn, [(a.shape, a.dtype, a.device) for a in args], kw))
-            elif key in _seen:
+            elif key in _seen and not _deferring:
                 _graphs[key] = _Captured(fn, args, kw)
             else:
                 _seen.add(key)
         if key in _graphs:
             return _graphs[key](args)
+    return fn(*args, **kw)
+
+
+def maybe_replayed(fn, *args: torch.Tensor, **kw):
+    """:func:`replayed` where every tensor of ``args`` is a CUDA tensor and
+    none is batched by ``torch.func.vmap``; else ``fn(*args, **kw)``."""
+    if all(a.is_cuda for a in args) and not any(torch._C._functorch.is_batchedtensor(a) for a in args):
+        return replayed(fn, *args, **kw)
     return fn(*args, **kw)
 
 
