@@ -961,7 +961,8 @@ def _check_relaxations(name, kept, applied) -> None:
         raise AssertionError(f"{name}: the async relaxations differ from compute_relaxation: {bad}")
 
 
-# the tracking step's pose rounds, 4 calls through ops.replay a frame: their
+# the tracking step's pose rounds, 4 calls through ops.replay a frame or a
+# fleet step (the fleet's: their vmapped bodies, ops.replay.vmapped): their
 # first 3 calls at each key (eager, captured, replayed) and every 16th after
 # are held, the relaxation's stages every call
 _POSE_STAGES = ("_ransac", "_refine")
@@ -970,9 +971,9 @@ _POSE_STAGES = ("_ransac", "_refine")
 def _spy_replays():
     """Patch ``ops.replay.replayed`` (through which ``compute_relaxation``
     runs its solve and its appearance pair registration on the card, and
-    the tracking step its RANSAC and pose LM) to keep clones of the inputs
-    and the outputs of the calls :data:`_POSE_STAGES` says.  Returns
-    ``(calls, restore)``."""
+    the tracking step its RANSAC and pose LM, vmapped in ``MultiStreamVO``)
+    to keep clones of the inputs and the outputs of the calls
+    :data:`_POSE_STAGES` says.  Returns ``(calls, restore)``."""
     try:
         from rgbd_visualodometry_tpu_torch.ops import replay
     except ImportError:  # a tree from before the replays (tools/port_ab.py): nothing to hold
@@ -1020,9 +1021,12 @@ def _check_replays(name, calls) -> None:
     bad = replay_mismatches(calls)
     solves = sum(fn.__name__ == "_optimize_flat" for fn, *_ in calls)
     rounds = sum(fn.__name__ in _POSE_STAGES for fn, *_ in calls)
-    print(f"{name}: {len(calls)} calls through ops.replay held ({solves} solves, {rounds} pose-round stages; eager at a new shape, then "
-          f"captured and replayed), " + (f"NOT equal to eager: {bad}" if bad else
-                               "each equal to the bit to the eager call, and each solve to the unpadded one"))
+    bodies = getattr(sys.modules.get("rgbd_visualodometry_tpu_torch.ops.replay"), "_bodies", {})  # the fleet's vmapped bodies
+    vmapped = sum(fn in bodies for fn, *_ in calls)
+    print(f"{name}: {len(calls)} calls through ops.replay held ({solves} solves, {rounds} pose-round stages, {vmapped} of "
+          f"them vmapped; eager at a new shape, then captured and replayed), " + (
+              f"NOT equal to eager: {bad}" if bad else
+              "each equal to the bit to the eager call, and each solve to the unpadded one"))
     if bad:
         raise AssertionError(f"{name}: a replayed call differs from the eager one: {bad}")
 
@@ -1688,13 +1692,17 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
     torch.cuda.synchronize()
     kernels.reset_counts()
     outs, step_s = [], []
-    for fb in batches[:n]:
-        t = time.perf_counter()
-        outs.append(vo.step(fb).packed)
+    replays, restore_replays = _spy_replays()
+    try:
+        for fb in batches[:n]:
+            t = time.perf_counter()
+            outs.append(vo.step(fb).packed)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        vo.finish()
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-    vo.finish()
-    torch.cuda.synchronize()
+    finally:
+        restore_replays()
     counts = kernels.counts()
     rec = torch.stack(outs).cpu().numpy()  # [steps, S, 32]
     f = StepOutput._FIELDS
@@ -1711,6 +1719,9 @@ def multistream_phase(cfg, dev, profile_steps: int = 0):
           f"stream-records asked for BA), BA {1e3 * statistics.median(ba_s):.2f} ms/dispatch median "
           f"(all: {', '.join(f'{1e3 * x:.2f}' for x in ba_s)})" if ba_s else "multistream: no BA dispatch")
     print(f"launches on the multistream path: {counts} over {n} batch steps")
+    pose = {k: v for k, v in vo.counters().items() if k.startswith("pose_stage")}
+    print(f"multistream: pose-round stage calls {pose or 'not counted'}")
+    _check_replays("multistream", replays)
     if not tracked.all():
         raise AssertionError(f"multistream: {int((~tracked).sum())} stream-frames not tracked")
     if not all(math.isfinite(a) and a < ATE_LIMIT_M for a in ates):

@@ -103,8 +103,9 @@ class PoseRefineResult(NamedTuple):
 def refine_pose(pose0, pts_w, uv, inlier_mask, camera, iterations: int = 10,
                 huber_delta: float = 7.815**0.5, chi2_outlier: float = 1.0) -> PoseRefineResult:
     """The reference's two-round schedule (``src/frontend.cpp:256-329``).
-    On CUDA tensors outside ``torch.func.vmap`` it is replayed from one
-    captured CUDA graph per shape and arguments (``ops.replay``)."""
+    On CUDA tensors it is replayed from one captured CUDA graph per shape
+    and arguments, under ``torch.func.vmap`` the vmapped body's
+    (``ops.replay.maybe_replayed``)."""
     return replay.maybe_replayed(
         _refine, pose0, pts_w, uv, inlier_mask,
         camera=camera, iterations=iterations, huber_delta=huber_delta, chi2_outlier=chi2_outlier,

@@ -58,8 +58,9 @@ def ransac_pnp(key, p_world, uv, p_cam_depth, depth_ok, match_valid, seed_pose, 
                depth_free_fraction: float = 0.25) -> RansacResult:
     """RANSAC over ``n_hypotheses`` lanes plus the seed lane; ``p_world``,
     ``p_cam_depth`` ``[M, 3]``, ``uv [M, 2]``, masks ``[M]``.  On CUDA
-    tensors outside ``torch.func.vmap`` it is replayed from one captured
-    CUDA graph per shape and arguments (``ops.replay``)."""
+    tensors it is replayed from one captured CUDA graph per shape and
+    arguments, under ``torch.func.vmap`` the vmapped body's
+    (``ops.replay.maybe_replayed``)."""
     return replay.maybe_replayed(
         _ransac, key, p_world, uv, p_cam_depth, depth_ok, match_valid, seed_pose,
         camera=camera, n_hypotheses=n_hypotheses, threshold=threshold, depth_free_fraction=depth_free_fraction,

@@ -27,11 +27,19 @@ The graphs live as long as the process, as a compile cache does.
 
 Besides the relaxation's stages, the tracking step's pose rounds
 (``ops.pnp.ransac_pnp``, ``ops.lm.refine_pose``) go through
-:func:`maybe_replayed`: thousands of launches each, on every frame.
+:func:`maybe_replayed`: thousands of launches each, on every frame.  Under
+``torch.func.vmap`` (``MultiStreamVO``'s step) a CUDA call goes on to the
+vmap rule of :class:`_Vmapped`, which replays the vmapped body
+(:func:`vmapped`) on the plain ``[S, ...]`` tensors below the vmap.
+
+:func:`tally` sums the host-int counts each function's calls leave here:
+``calls``, of which ``eager`` ran eagerly at a key without a graph,
+``captures`` captured one and ``replays`` replayed one.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 
@@ -81,6 +89,9 @@ class _Captured:
 
 
 _graphs: dict = {}  # key -> _Captured
+_tallies: dict = collections.defaultdict(collections.Counter)  # body -> its calls' counts (module docstring)
+_bodies: dict = {}  # a vmapped body (vmapped()) -> the body it vmaps
+_vmapped: dict = {}  # (body, in_dims) -> torch.func.vmap(body, in_dims)
 _seen: set = set()  # keys run eagerly once outside deferred()
 _deferred: dict = {}  # key -> (fn, [(shape, dtype, device)], kw), run eagerly inside deferred()
 _lock = threading.Lock()  # one capture at a time in a process, one caller at a time per graph
@@ -110,24 +121,89 @@ def replayed(fn, *args: torch.Tensor, **kw):
     its second call, replayed from then on (module docstring)."""
     key = (fn, args[0].device, tuple((a.shape, a.dtype) for a in args), tuple(sorted(kw.items())))
     with _lock:
+        counts = _tallies[_bodies.get(fn, fn)]
+        counts["calls"] += 1
         if key not in _graphs:
             if getattr(_local, "deferred", False):
                 _deferred.setdefault(key, (fn, [(a.shape, a.dtype, a.device) for a in args], kw))
             elif key in _seen and not _deferring:
                 _graphs[key] = _Captured(fn, args, kw)
+                counts["captures"] += 1
+                return _graphs[key](args)
             else:
                 _seen.add(key)
         if key in _graphs:
+            counts["replays"] += 1
             return _graphs[key](args)
+        counts["eager"] += 1
     return fn(*args, **kw)
+
+
+def _eager(fn, args, kw):
+    """``fn(*args, **kw)``, counted as an eager call of its body."""
+    with _lock:
+        counts = _tallies[_bodies.get(fn, fn)]
+        counts["calls"] += 1
+        counts["eager"] += 1
+    return fn(*args, **kw)
+
+
+def _batched(a: torch.Tensor) -> bool:
+    return torch._C._functorch.is_batchedtensor(a)
 
 
 def maybe_replayed(fn, *args: torch.Tensor, **kw):
-    """:func:`replayed` where every tensor of ``args`` is a CUDA tensor and
-    none is batched by ``torch.func.vmap``; else ``fn(*args, **kw)``."""
-    if all(a.is_cuda for a in args) and not any(torch._C._functorch.is_batchedtensor(a) for a in args):
-        return replayed(fn, *args, **kw)
-    return fn(*args, **kw)
+    """``fn(*args, **kw)``, from a captured graph where every tensor of
+    ``args`` is a CUDA tensor: :func:`replayed`, or under ``torch.func.vmap``
+    the vmapped body replayed below the vmap (:class:`_Vmapped`).  On other
+    devices ``fn`` runs eagerly."""
+    if not all(a.is_cuda for a in args):
+        return _eager(fn, args, kw)
+    if any(_batched(a) for a in args):
+        return _Vmapped.apply(fn, kw, *args)
+    return replayed(fn, *args, **kw)
+
+
+def vmapped(fn, in_dims: tuple):
+    """``torch.func.vmap(fn, in_dims=in_dims)``, one object per key, so that
+    :func:`replayed` keys its graphs on it."""
+    key = (fn, in_dims)
+    with _lock:
+        if key not in _vmapped:
+            _vmapped[key] = vfn = torch.func.vmap(fn, in_dims=in_dims)
+            _bodies[vfn] = fn
+        return _vmapped[key]
+
+
+class _Vmapped(torch.autograd.Function):
+    """``fn(*args, **kw)`` called under ``torch.func.vmap``.  Its vmap rule
+    receives the tensors of the level below, ``[S, ...]`` at their
+    ``in_dims``, and runs :func:`vmapped` ``(fn, in_dims)`` on them: from a
+    captured graph (:func:`replayed`) where they are plain CUDA tensors,
+    else eagerly (still batched: a vmap inside another; or not on CUDA).
+    Its outputs are batched at dimension 0."""
+
+    @staticmethod
+    def forward(fn, kw, *args):
+        return fn(*args, **kw)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, fn, kw, *args):
+        vfn = vmapped(fn, tuple(in_dims[2:]))
+        if all(a.is_cuda and not _batched(a) for a in args):
+            return replayed(vfn, *args, **kw), 0
+        return _eager(vfn, args, kw), 0
+
+
+def tally(*fns) -> collections.Counter:
+    """The counts (module docstring) of the calls of ``fns`` so far in this
+    process, their vmapped bodies' included, summed: host ints."""
+    with _lock:
+        return sum((_tallies[fn] for fn in fns), collections.Counter())
 
 
 def capture_deferred() -> None:

@@ -11,7 +11,10 @@ under ``torch.func.vmap``, as the JAX package ``vmap``s it: every tensor op
 of the step is issued once for all streams, and kernels K1 (``fast_nms``)
 and K2 (``hamming_nn``) launch once per batch step for every stream, through
 their custom ops' vmap rules (``kernels.fold_streams``).  A loop over the
-streams would issue each of the ~31k launches of a frame S times.
+streams would issue each of the ~31k launches of a frame S times.  On
+CUDA the pose rounds' RANSAC and LM, most of those launches, replay their
+vmapped bodies from one captured CUDA graph each per batch size
+(``ops.replay.maybe_replayed``).
 
 As in the JAX package the step is two calls, ``track_compute`` and then
 ``apply_updates``.  The optional local BA differs: the JAX package solves
@@ -58,7 +61,7 @@ from rgbd_visualodometry_tpu_torch import mapstate
 from rgbd_visualodometry_tpu_torch import random as vo_random
 from rgbd_visualodometry_tpu_torch.camera import Camera
 from rgbd_visualodometry_tpu_torch.ops import matching
-from rgbd_visualodometry_tpu_torch.ops import collectives
+from rgbd_visualodometry_tpu_torch.ops import collectives, replay
 from rgbd_visualodometry_tpu_torch.pipeline import backend
 from rgbd_visualodometry_tpu_torch.pipeline import frontend as frontend_mod
 from rgbd_visualodometry_tpu_torch.pipeline import globalopt
@@ -126,6 +129,7 @@ class MultiStreamVO:
         self.ba_streams_solved = 0  # streams gathered into a solve (this rank's)
         self.ba_streams_kept = 0  # streams whose result the state kept (this rank's)
         self._ba_lm_steps = torch.zeros(len(self.streams), dtype=torch.int64, device=self.device)
+        self._pose_stages = collections.Counter()  # this object's pose-stage calls (ops.replay.tally)
 
     def put_batch(self, rgb: np.ndarray, depth: np.ndarray, timestamps) -> frontend_mod.FrameInput:
         """Stage one ``[S, ...]`` frame batch on the device (this rank's
@@ -146,7 +150,9 @@ class MultiStreamVO:
         :class:`FrameInput` from :meth:`put_batch`.  Returns the batched
         :class:`StepOutput` (``packed [S, 32]``), every rank's streams."""
         frames = rgb if isinstance(rgb, frontend_mod.FrameInput) else self.put_batch(rgb, depth, timestamps)
+        before = replay.tally(*frontend_mod.POSE_STAGES)
         inter = self._compute(self.states, frames)
+        self._pose_stages += replay.tally(*frontend_mod.POSE_STAGES) - before
         self.states, packed = self._update(self.states, inter)
         if self.shard is not None:
             (packed,) = collectives.all_gather_blocks(self.shard, packed)
@@ -208,10 +214,13 @@ class MultiStreamVO:
         rank's streams: dispatches, streams solved (the rows gathered into
         a solve, a lone stream's copy included) and kept (those whose record
         asked for BA), the LM iterations run for the kept streams and those
-        whose step was taken.  Reads the device once; the step path never calls it."""
+        whose step was taken; and the pose rounds' stage calls, one per
+        vmapped call, and how many of them replayed a captured graph
+        (``ops.replay``).  Reads the device once; the step path never calls it."""
         n, kept = self.ba_dispatches, self.ba_streams_kept
         return dict(ba_dispatches=n, ba_streams_solved=self.ba_streams_solved, ba_streams_kept=kept,
-                    ba_lm_iterations=2 * self.cfg.ba_iterations * kept, ba_lm_steps=int(self._ba_lm_steps.sum()))
+                    ba_lm_iterations=2 * self.cfg.ba_iterations * kept, ba_lm_steps=int(self._ba_lm_steps.sum()),
+                    pose_stage_calls=self._pose_stages["calls"], pose_stage_replays=self._pose_stages["replays"])
 
     def finish(self) -> None:
         """Run the BA dispatches still due (call once after the last step)."""

@@ -131,6 +131,9 @@ class TrackInter(NamedTuple):
     n_match: torch.Tensor
 
 
+# the bodies of a round's two stages, whose calls ``ops.replay.tally`` counts
+POSE_STAGES = (pnp._ransac, lm._refine)
+
 # every field but ``tmap`` (the pool's, one block per rank) is the same on
 # every rank of a split pool
 _REPLICATED = tuple(f for f in TrackInter._fields if f != "tmap")

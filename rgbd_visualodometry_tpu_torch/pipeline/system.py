@@ -114,6 +114,7 @@ class VisualOdometry:
         self._frames_since_ba = 1 << 30
         self.ba_dispatches = 0  # local BA solves run
         self._ba_lm_steps = torch.zeros((), dtype=torch.int64, device=self.device)  # their LM steps taken
+        self._pose_stages = collections.Counter()  # this object's pose-stage calls (ops.replay.tally)
         self.num_auto_relaxes = 0  # online loop closures (relax_every_kf)
         # async loop-closure worker (cfg.relax_async): at most one in flight
         self._relax_thread: Optional[threading.Thread] = None
@@ -150,7 +151,9 @@ class VisualOdometry:
             frame = self.put_frame(rgb, depth, timestamp)
         if rgb_ref is None and self._viewer is not None:
             rgb_ref = frame.rgb if isinstance(rgb, frontend_mod.FrameInput) else rgb
+        before = replay.tally(*frontend_mod.POSE_STAGES)
         self.state, out = frontend_mod.track_step(self.cfg, self.camera, self.state, frame, self.shard)
+        self._pose_stages += replay.tally(*frontend_mod.POSE_STAGES) - before
         self._pending.append((float(timestamp), out, time.perf_counter() - t0, rgb_ref))
 
     def _materialize(self, ts: float, out, dispatch_s: float, rgb_ref=None) -> FrameResult:
@@ -200,11 +203,14 @@ class VisualOdometry:
     def counters(self) -> dict:
         """Local BA's work since construction, as host ints: dispatches,
         streams solved and kept (one each a dispatch here), the LM
-        iterations run for the kept streams and those whose step was taken.
-        Reads the device once; the step path never calls it."""
+        iterations run for the kept streams and those whose step was taken;
+        and the pose rounds' stage calls, and how many of them replayed a
+        captured graph (``ops.replay``).  Reads the device once; the step
+        path never calls it."""
         n = self.ba_dispatches
         return dict(ba_dispatches=n, ba_streams_solved=n, ba_streams_kept=n,
-                    ba_lm_iterations=2 * self.cfg.ba_iterations * n, ba_lm_steps=int(self._ba_lm_steps))
+                    ba_lm_iterations=2 * self.cfg.ba_iterations * n, ba_lm_steps=int(self._ba_lm_steps),
+                    pose_stage_calls=self._pose_stages["calls"], pose_stage_replays=self._pose_stages["replays"])
 
     @property
     def lost(self) -> bool:

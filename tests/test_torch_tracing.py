@@ -9,7 +9,8 @@ opened where each layer's work runs) and its BA work counters
 - Records, poses and every state leaf are equal to the bit with the
   profiler on and off.
 - ``counters()``: dispatches, streams solved and kept, LM iterations and
-  steps taken, against a hand count from per-stream ``ba_step`` calls; and
+  steps taken, against a hand count from per-stream ``ba_step`` calls, and
+  the pose stages' calls (four a step, none replayed on the CPU); and
   ``BAOutput.lm_steps`` against a plain recount of the steps ``_lm_phase``
   took.
 - The fleet's BA dispatch solves only the streams its record asked for,
@@ -161,13 +162,14 @@ def test_single_stream_counters(monkeypatch):
     monkeypatch.setattr(backend, "ba_step", counted)
     vo = VisualOdometry(cfg, device="cpu")
     assert vo.counters() == dict(ba_dispatches=0, ba_streams_solved=0, ba_streams_kept=0, ba_lm_iterations=0,
-                                 ba_lm_steps=0)
+                                 ba_lm_steps=0, pose_stage_calls=0, pose_stage_replays=0)
     for f in _seqs(1)[0][:4]:
         vo.process(f.rgb, f.depth, f.timestamp)
     n = len(steps)
     assert n == vo.ba_dispatches == 3
     assert vo.counters() == dict(ba_dispatches=n, ba_streams_solved=n, ba_streams_kept=n,
-                                 ba_lm_iterations=2 * cfg.ba_iterations * n, ba_lm_steps=sum(steps))
+                                 ba_lm_iterations=2 * cfg.ba_iterations * n, ba_lm_steps=sum(steps),
+                                 pose_stage_calls=4 * 4, pose_stage_replays=0)  # two rounds of two stages a frame
 
 
 def _fleet_before_ba(n_streams):
@@ -227,7 +229,8 @@ def test_masked_fleet_dispatch_counts_the_kept_streams():
     _, alone = backend.ba_step(cfg, Camera.from_config(cfg), before[1], before[1].ref_kf.long())
     assert lm_steps > 0 and int(alone.lm_steps) > 0
     assert vo.counters() == dict(ba_dispatches=1, ba_streams_solved=2, ba_streams_kept=2,
-                                 ba_lm_iterations=2 * cfg.ba_iterations * 2, ba_lm_steps=lm_steps)
+                                 ba_lm_iterations=2 * cfg.ba_iterations * 2, ba_lm_steps=lm_steps,
+                                 pose_stage_calls=4 * mesh.BA_LAG, pose_stage_replays=0)
     left = mapstate.state_to_numpy(mapstate.unstack_state(vo.states, 1))
     for name, value in mapstate.state_to_numpy(before[1]).items():
         np.testing.assert_array_equal(left[name], value, err_msg=name)
@@ -293,7 +296,8 @@ def test_fleet_ba_solves_only_the_kept_streams(fleet4, asking, batch):
     assert not np.array_equal(mapstate.state_to_numpy(vo.states)["mp_pos"], pre["mp_pos"])  # BA moved points
     n = len(asking)
     assert vo.counters() == dict(ba_dispatches=1, ba_streams_solved=len(batch), ba_streams_kept=n,
-                                 ba_lm_iterations=2 * vo.cfg.ba_iterations * n, ba_lm_steps=int(lm_steps[:n].sum()))
+                                 ba_lm_iterations=2 * vo.cfg.ba_iterations * n, ba_lm_steps=int(lm_steps[:n].sum()),
+                                 pose_stage_calls=4 * mesh.BA_LAG, pose_stage_replays=0)
 
 
 def test_fleet_ba_with_no_kept_stream_runs_no_solve(fleet4):
